@@ -1,0 +1,98 @@
+"""The PyTorch port stands alone: it imports nothing of JAX or of the JAX
+package, and it never runs on the CPU unless asked to."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ("jax", "jaxlib", "optax", "gelslim_depth_tpu")
+
+
+def test_port_runs_with_jax_blocked(tmp_path):
+    script = textwrap.dedent(
+        f"""
+        import sys
+
+        class Blocker:
+            BLOCKED = {BLOCKED!r}
+            def find_spec(self, name, path=None, target=None):
+                # exact top-level match: gelslim_depth_tpu_torch must pass
+                if name.split(".")[0] in self.BLOCKED:
+                    raise ImportError(f"{{name}} blocked for this test")
+        sys.meta_path.insert(0, Blocker())
+
+        import numpy as np
+        import torch
+        from gelslim_depth_tpu_torch import GelslimConfig, Predictor
+        from gelslim_depth_tpu_torch.inference import fused_predict_dual
+        from gelslim_depth_tpu_torch.models import UNet
+
+        cfg = GelslimConfig(CNN_dimensions=(4, 8), input_tactile_image_size=(8, 11),
+                            depth_normalization_parameters=(-1.9, 0.0))
+        sd = UNet(cfg.unet_config()).state_dict()
+        pred = Predictor(cfg, sd, device="cpu")
+        frames = np.full((2, 6, 16, 22), 127.0, np.float32)
+        out = pred.predict_dual_frames(frames, frames[0], (16, 22))
+        assert out.shape == (2, 2, 16, 22) and torch.isfinite(out).all()
+        with torch.no_grad():  # the kernel route, through the kernel's CPU twin
+            t = torch.from_numpy(frames)
+            out_k = fused_predict_dual(cfg, pred.net, t, t[0], (16, 22), use_kernel=True)
+        assert torch.allclose(out, out_k, atol=1e-5)
+        out = pred.predict_depth_from_RGB(frames[:, :3], (16, 22))
+        assert torch.isfinite(out).all()
+        assert not any(m.split(".")[0] in Blocker.BLOCKED for m in sys.modules)
+        print("NO-JAX-OK")
+        """
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True, cwd=str(tmp_path),
+        env={"PATH": "/usr/bin:/bin", "HOME": str(tmp_path), "PYTHONPATH": REPO},
+        timeout=300,
+    )
+    assert "NO-JAX-OK" in r.stdout, f"stdout: {r.stdout[-2000:]}\nstderr: {r.stderr[-3000:]}"
+
+
+def _port_sources():
+    pkg = os.path.join(REPO, "gelslim_depth_tpu_torch")
+    for root, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_no_jax_import_in_port_sources():
+    offenders = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [(path, n) for n in names if n.split(".")[0] in BLOCKED]
+    assert not offenders, offenders
+
+
+def test_no_quiet_cpu_fallback(monkeypatch):
+    from gelslim_depth_tpu_torch import GelslimConfig, Predictor
+    from gelslim_depth_tpu_torch.models import UNet
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = GelslimConfig(CNN_dimensions=(4, 8), input_tactile_image_size=(8, 11),
+                        depth_normalization_parameters=(-1.9, 0.0))
+    sd = UNet(cfg.unet_config()).state_dict()
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Predictor(cfg, sd, **kw)
+    assert Predictor(cfg, sd, device="cpu").device.type == "cpu"
