@@ -7,7 +7,8 @@ Builds the port's hand-written CUDA kernels from the sources in the
 checkout, holds each against its plain PyTorch twin on the card, drives
 the main path (flagship dual-frame serving through ``Predictor``, seeded
 random weights) and checks what comes out, then times the kernels and the
-path with CUDA events. Prints the card, a ``{"kernels": [...]}`` line, an
+U-Net by their device time in a torch.profiler trace, and whole calls by
+the host clock. Prints the card, a ``{"kernels": [...]}`` line, an
 end-to-end line and, last, ``{"ok": true, "device": {...}}``. Any failed
 check exits non-zero; with no CUDA device it exits non-zero before any
 result. Imports nothing of JAX or of the JAX package.
@@ -32,6 +33,7 @@ from gelslim_depth_tpu_torch.ops.kernels import (
     fused_preprocess_dual,
     fused_preprocess_dual_reference,
 )
+from gelslim_depth_tpu_torch.utils.profiling import busy_us, device_events, device_ms
 
 FRAME = (320, 427)
 NET_IN = (160, 213)
@@ -119,21 +121,6 @@ def seeded_state_dict(cfg, seed: int):
     return sd
 
 
-def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
-    """Median device time of one call, CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def host_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median host time of one call that ends in a synchronize."""
     for _ in range(warmup):
@@ -173,27 +160,14 @@ def device_profile(fn, calls: int = 10):
     """A torch.profiler trace of `calls` calls, each ending in a synchronize
     as a serving loop's does. Returns (device busy ms per call, device idle
     share, device ops per call, {category: share of device op time}), or
-    None when the trace holds no device events. Busy time is the union of
-    the device ops' intervals; the idle share is the rest of the span from
-    the first device op's start to the last one's end."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-            torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    None when the trace holds no device events. The idle share is the part
+    of the span from the first device op's start to the last one's end in
+    which no device op runs."""
+    events = device_events(fn, calls, sync_each=True)
     if not events:
         return None
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, end = 0.0, spans[0][0]
-    for s, e in spans:
-        busy += max(0.0, e - max(s, end))
-        end = max(end, e)
-    span = end - spans[0][0]
+    busy = busy_us(events)
+    span = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
     per_category = dict.fromkeys((*DEVICE_OP_KEYS, LIBRARY_OPS), 0.0)
     for e in events:
         cat = next((c for c, keys in DEVICE_OP_KEYS.items() if any(k in e.name for k in keys)), LIBRARY_OPS)
@@ -208,29 +182,41 @@ def check_kernel(g):
     at the flagship shape."""
     flagship_err = 0.0
     nonuniform = ([0.01, 0.02, 0.03], [-1.0, 0.5, 2.0])
+    ragged = (33, 47)  # a plane of 6,204 B: spans start and end off 16 B
     cases = [
-        # (n, (H, W), (h, w), use_diff, (mult, add), flagship)
-        (1, FRAME, NET_IN, True, (MULT, ADD), True),
-        (2, FRAME, NET_IN, True, (MULT, ADD), True),
-        (2, FRAME, NET_IN, False, (MULT, ADD), True),
-        (8, FRAME, NET_IN, True, (MULT, ADD), True),
-        (8, FRAME, NET_IN, False, (MULT, ADD), True),
-        (64, FRAME, NET_IN, True, (MULT, ADD), True),
-        (64, FRAME, NET_IN, False, (MULT, ADD), True),
-        (2, FRAME, NET_IN, True, nonuniform, True),
-        (2, FRAME, NET_IN, False, nonuniform, True),
-        (3, (64, 86), (32, 43), True, (MULT, ADD), False),
-        (3, (64, 86), (32, 43), False, (MULT, ADD), False),
-        (2, NET_IN, FRAME, True, (MULT, ADD), False),  # upsampling: windows of 1-2
+        # (n, (H, W), (h, w), use_diff, (mult, add), flagship, views offset by one plane)
+        (1, FRAME, NET_IN, True, (MULT, ADD), True, False),
+        (2, FRAME, NET_IN, True, (MULT, ADD), True, False),
+        (2, FRAME, NET_IN, False, (MULT, ADD), True, False),
+        (8, FRAME, NET_IN, True, (MULT, ADD), True, False),
+        (8, FRAME, NET_IN, False, (MULT, ADD), True, False),
+        (64, FRAME, NET_IN, True, (MULT, ADD), True, False),
+        (64, FRAME, NET_IN, False, (MULT, ADD), True, False),
+        (2, FRAME, NET_IN, True, nonuniform, True, False),
+        (2, FRAME, NET_IN, False, nonuniform, True, False),
+        (5, FRAME, NET_IN, True, (MULT, ADD), True, False),  # N that no frame chunk divides
+        (13, FRAME, NET_IN, True, nonuniform, True, False),
+        (3, (64, 86), (32, 43), True, (MULT, ADD), False, False),
+        (3, (64, 86), (32, 43), False, (MULT, ADD), False, False),
+        (3, (64, 86), (16, 21), True, nonuniform, False, False),  # windows of 4-5: loops of any extent
+        (2, NET_IN, FRAME, True, (MULT, ADD), False, False),  # upsampling: windows of 1-2
+        (2, (321, 427), NET_IN, True, (MULT, ADD), False, False),  # row windows overlap tiles
+        (3, ragged, (16, 23), True, (MULT, ADD), False, False),
+        (3, ragged, (16, 23), False, (MULT, ADD), False, False),
+        (3, ragged, (16, 23), True, (MULT, ADD), False, True),  # frames[1:], base[1:]
+        (3, ragged, (16, 23), False, nonuniform, False, True),
     ]
-    for n, (h_in, w_in), out_size, use_diff, (mult, add), flagship in cases:
-        frames, base = rand((n, 6, h_in, w_in), g), rand((6, h_in, w_in), g)
+    for n, (h_in, w_in), out_size, use_diff, (mult, add), flagship, view in cases:
+        k = int(view)
+        frames, base = rand((n + k, 6, h_in, w_in), g)[k:], rand((6 + k, h_in, w_in), g)[k:]
+        check(not view or bool(frames.data_ptr() % 16 and base.data_ptr() % 16),
+              "an offset view starts on 16 B, so it tests no misaligned span")
         got = fused_preprocess_dual(frames, base, mult, add, out_size=out_size, use_diff=use_diff)
         want = fused_preprocess_dual_reference(frames, base, mult, add, out_size=out_size, use_diff=use_diff)
         torch.cuda.synchronize()
         check(got.shape == (2 * n, 3, *out_size), f"kernel output shape {tuple(got.shape)}")
         err = (got - want).abs().max().item()
-        tag = f"n={n} {h_in}x{w_in}->{out_size} use_diff={use_diff} mult={mult[0]:.4g}"
+        tag = f"n={n} {h_in}x{w_in}->{out_size} use_diff={use_diff} mult={mult[0]:.4g} view={view}"
         print(f"kernel vs plain: {tag}: max|diff| {err:.3e}", flush=True)
         if mult is MULT:
             check(err < 1e-5, f"kernel disagrees with plain ({tag}): {err}")
@@ -313,13 +299,15 @@ def drive_main_path(cfg, sd, frames64, base):
 
 
 def measure(pred16, frames64, base, bw, f32_peak):
-    """Kernel, plain, library and bound times; bf16 end-to-end stage times."""
+    """Kernel, plain, library and bound times, each the device time of one
+    call; bf16 end-to-end call times. At N=1 the 3.3 MB of inputs stay in
+    the 50 MB L2 from call to call, so the N=1 times are warm."""
     timings = {}
     for n in (1, 64):
         frames = frames64[:n]
-        kernel = time_ms(lambda: fused_preprocess_dual(frames, base, MULT, ADD, out_size=NET_IN))
-        plain = time_ms(lambda: fused_preprocess_dual_reference(frames, base, MULT, ADD, out_size=NET_IN))
-        library = time_ms(lambda: F.adaptive_avg_pool2d(frames, NET_IN))
+        kernel = device_ms(lambda: fused_preprocess_dual(frames, base, MULT, ADD, out_size=NET_IN))
+        plain = device_ms(lambda: fused_preprocess_dual_reference(frames, base, MULT, ADD, out_size=NET_IN))
+        library = device_ms(lambda: F.adaptive_avg_pool2d(frames, NET_IN))
         bound, bound_by = preprocess_bound_ms(n, *FRAME, *NET_IN, bw, f32_peak)
         timings[n] = dict(ms=kernel, plain_ms=plain, library_ms=library, bound_ms=bound, bound_by=bound_by)
         print(f"fused_preprocess_dual N={n}: kernel {kernel:.4f} ms, plain {plain:.4f} ms, "
@@ -330,7 +318,7 @@ def measure(pred16, frames64, base, bw, f32_peak):
         frames = frames64[:n]
         x = fused_preprocess_dual(frames, base, MULT, ADD, out_size=NET_IN)
         with torch.inference_mode():
-            unet = time_ms(lambda: pred16.net(x), reps=20, warmup=3)
+            unet = device_ms(lambda: pred16.net(x), calls=10)
         # five rounds of host_ms give the spread of the call time in this run
         rounds = sorted(host_ms(lambda: pred16.predict_dual_frames(frames, base, FRAME)) for _ in range(5))
         call = rounds[2]

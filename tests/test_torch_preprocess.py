@@ -145,6 +145,42 @@ def test_cuda_kernel_matches_twin_at_flagship_shape():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,frame,out_size,use_diff,misaligned,coeffs", [
+    (3, (33, 47), (16, 23), True, False, "uniform"),    # plane bytes not a multiple of 16
+    (3, (33, 47), (16, 23), False, False, "uniform"),
+    (3, (33, 47), (16, 23), True, True, "uniform"),     # frames[1:] and base[1:]: data_ptr off 16 B
+    (3, (33, 47), (16, 23), False, True, "nonuniform"),
+    (2, (321, 427), (160, 213), True, False, "uniform"),  # row windows overlap the next tile
+    (5, (320, 427), (160, 213), True, False, "nonuniform"),  # N that no frame chunk divides
+    (13, (320, 427), (160, 213), True, False, "uniform"),
+    (3, (64, 86), (16, 21), True, False, "nonuniform"),  # windows of 4-5: loops of any extent
+])
+def test_cuda_kernel_matches_twin_on_ragged_shapes(n, frame, out_size, use_diff, misaligned, coeffs):
+    """Shapes whose spans start or end off 16 B, overlap between tiles, or
+    split unevenly into frame chunks: max |diff| < 1e-5 against the twin, or
+    rtol/atol 1e-5 with non-uniform coefficients."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    k = int(misaligned)
+    frames = (torch.rand((n + k, 6, *frame), generator=g, device="cuda") * 255)[k:]
+    base = (torch.rand((6 + k, *frame), generator=g, device="cuda") * 255)[k:]
+    if misaligned:
+        assert frames.data_ptr() % 16 and base.data_ptr() % 16
+    mult, add = (MULT, ADD) if coeffs == "uniform" else ([0.01, 0.02, 0.03], [-1.0, 0.5, 2.0])
+    before = fused_preprocess_dual.launches
+    got = fused_preprocess_dual(frames, base, mult, add, out_size=out_size, use_diff=use_diff)
+    want = fused_preprocess_dual_reference(frames, base, mult, add, out_size=out_size, use_diff=use_diff)
+    torch.cuda.synchronize()
+    assert fused_preprocess_dual.launches == before + 1
+    assert got.shape == (2 * n, 3, *out_size)
+    if coeffs == "uniform":
+        assert (got - want).abs().max().item() < 1e-5
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
 def test_cuda_empty_batch_launches_nothing():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
