@@ -2,12 +2,14 @@
 GelSlim sensors on an NVIDIA GPU.
 
 Ported so far: the ops and config, the U-Net eval forward, reference and
-JAX-checkpoint weight loading, and fused dual-frame serving, whose
-diff + resize + normalize front end runs as a hand-written CUDA kernel.
-The package imports torch and numpy, never JAX or gelslim_depth_tpu.
+JAX-checkpoint weights in and out, fused dual-frame serving, whose
+diff + resize + normalize front end runs as a hand-written CUDA kernel,
+and int8 post-training-quantized serving, whose quantized convs run as a
+second one. The package imports torch and numpy, never JAX or
+gelslim_depth_tpu.
 """
 
 from gelslim_depth_tpu_torch.config import GelslimConfig
-from gelslim_depth_tpu_torch.inference import Predictor, predict_depth_from_RGB
+from gelslim_depth_tpu_torch.inference import Predictor, QuantizedPredictor, predict_depth_from_RGB
 
-__all__ = ["GelslimConfig", "Predictor", "predict_depth_from_RGB"]
+__all__ = ["GelslimConfig", "Predictor", "QuantizedPredictor", "predict_depth_from_RGB"]

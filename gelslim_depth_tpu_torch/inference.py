@@ -5,8 +5,10 @@ denormalize -> resize-back (ref test_utils/test_depth_estimation.py:14-20,
 processing_utils/complete_prediction.py:4-10), optionally preceded by the
 dual-finger base-image subtraction. On a CUDA device the dual-frame path
 runs its diff + resize + normalize front end as one hand-written kernel
-(``ops.kernels.fused_preprocess_dual``), the U-Net as cuDNN convolutions,
-and the denormalize + resize-back as plain tensor ops.
+(``ops.kernels.fused_preprocess_dual``), the U-Net as cuDNN convolutions
+(``Predictor``) or as hand-written int8 convolutions
+(``ops.kernels.conv2d_int8``, ``QuantizedPredictor``), and the denormalize +
+resize-back as plain tensor ops.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no CUDA device they raise rather than run on the CPU.
@@ -14,7 +16,8 @@ with no CUDA device they raise rather than run on the CPU.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,19 +27,23 @@ from gelslim_depth_tpu_torch.config import GelslimConfig
 from gelslim_depth_tpu_torch.models.unet import UNet
 
 
+def _preprocess(config: GelslimConfig, images: torch.Tensor) -> torch.Tensor:
+    x = ops.resize(images, config.input_tactile_image_size, config.interp_method)
+    return ops.normalize_tactile_image(
+        x, config.image_normalization_method, config.norm_scale, config.image_normalization_parameters
+    )
+
+
 def fused_predict(
-    config: GelslimConfig, net: UNet, images: torch.Tensor, output_size: Tuple[int, int]
+    config: GelslimConfig, net: Callable, images: torch.Tensor, output_size: Tuple[int, int]
 ) -> torch.Tensor:
     """resize -> normalize -> UNet(eval) -> denormalize -> resize-back.
 
     images: (N, 3, H, W) tactile (or difference) images in [0, 255].
-    Returns (N, 1, *output_size) depth in mm (<= 0).
+    net maps the NCHW network input to NCHW float32 logits: a ``UNet``, or
+    a quantized one's forward. Returns (N, 1, *output_size) depth in mm (<= 0).
     """
-    x = ops.resize(images, config.input_tactile_image_size, config.interp_method)
-    x = ops.normalize_tactile_image(
-        x, config.image_normalization_method, config.norm_scale, config.image_normalization_parameters
-    )
-    return _postprocess(config, net(x), output_size)
+    return _postprocess(config, net(_preprocess(config, images)), output_size)
 
 
 def _postprocess(config: GelslimConfig, y: torch.Tensor, output_size) -> torch.Tensor:
@@ -61,7 +68,7 @@ def dual_frames_to_fingers(
 
 def fused_predict_dual(
     config: GelslimConfig,
-    net: UNet,
+    net: Callable,
     frames: torch.Tensor,
     base_frame: Optional[torch.Tensor],
     output_size: Tuple[int, int],
@@ -106,7 +113,52 @@ def fused_predict_dual(
     return depth.reshape(n, 2, *output_size)
 
 
-class Predictor:
+def _serving_device(device) -> torch.device:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+class _Serving:
+    """The predict API over ``self._net()``, a callable from the NCHW
+    network input to NCHW float32 logits, on ``self.device``. Inputs may be
+    numpy arrays or tensors on any device; outputs are float32 tensors on
+    the predictor's device."""
+
+    config: GelslimConfig
+    device: torch.device
+
+    def _net(self) -> Callable:
+        raise NotImplementedError
+
+    def _tensor(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    @torch.inference_mode()
+    def predict_depth_from_RGB(self, images, output_size: Tuple[int, int]) -> torch.Tensor:
+        """(N, 3, H, W) [0,255] images -> (N, 1, *output_size) mm depth."""
+        return fused_predict(self.config, self._net(), self._tensor(images), tuple(output_size))
+
+    @torch.inference_mode()
+    def predict_dual_frames(self, frames, base_frame, output_size: Tuple[int, int]) -> torch.Tensor:
+        """(N, 6, H, W) dual frames (+ base) -> (N, 2, *output_size) mm depth."""
+        base = None if base_frame is None else self._tensor(base_frame)
+        return fused_predict_dual(
+            self.config, self._net(), self._tensor(frames), base, tuple(output_size)
+        )
+
+    def predict_dual_frames_multi(self, frames_list, base_frame, output_size) -> torch.Tensor:
+        """Micro-batch entry: a list/tuple of k (1, 6, H, W) frames ->
+        (k, 2, *output_size), concatenated into one call."""
+        frames = torch.cat([self._tensor(f) for f in frames_list], dim=0)
+        return self.predict_dual_frames(frames, base_frame, output_size)
+
+    def __call__(self, images, output_size: Tuple[int, int]) -> torch.Tensor:
+        return self.predict_depth_from_RGB(images, output_size)
+
+
+class Predictor(_Serving):
     """Bundles config + weights into single-finger and dual-frame
     predictors on one device.
 
@@ -118,9 +170,9 @@ class Predictor:
         depth_mm = pred.predict_depth_from_RGB(diff_images, (320, 427))
 
     state_dict is the reference-layout U-Net state dict (tensors or numpy
-    arrays). device defaults to ``cuda`` and raises when no CUDA device is
-    present. Inputs may be numpy arrays or tensors on any device; outputs
-    are float32 tensors on the predictor's device.
+    arrays); the predictor keeps it as given, and ``quantize`` calibrates a
+    float32 U-Net built from it whatever the compute dtype. device
+    defaults to ``cuda`` and raises when no CUDA device is present.
     """
 
     def __init__(
@@ -133,14 +185,19 @@ class Predictor:
     ):
         self.config = config
         self.unet_cfg = config.unet_config()
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
+        self.device = _serving_device(device)
         self.compute_dtype = compute_dtype
+        self.state_dict = {k: torch.as_tensor(v) for k, v in state_dict.items()}
+        self.net = self._unet().to_compute_dtype(compute_dtype)
+
+    def _unet(self) -> UNet:
         with torch.device(self.device):
             net = UNet(self.unet_cfg)
-        net.load_state_dict({k: torch.as_tensor(v) for k, v in state_dict.items()})
-        self.net = net.to_compute_dtype(compute_dtype)
+        net.load_state_dict(self.state_dict)
+        return net
+
+    def _net(self) -> Callable:
+        return self.net
 
     @classmethod
     def from_torch_checkpoint(cls, path: str, config: GelslimConfig, **kw) -> "Predictor":
@@ -156,29 +213,107 @@ class Predictor:
         config, params, stats = load_checkpoint(ckpt_dir)
         return cls(config, params_from_jax(params, stats, config.unet_config()), **kw)
 
-    def _tensor(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+    def quantize(
+        self, calib_frames, base_frame=None, *,
+        percentile: float = 100.0, quantize_upconvs: bool = False,
+    ) -> "QuantizedPredictor":
+        """Post-training int8 quantization calibrated on representative raw
+        dual frames (N, 6, H, W), from the float32 weights whatever the
+        predictor's compute dtype. Returns a drop-in predictor that serves in
+        the same compute dtype, its quantized convs on ``conv2d_int8``.
+        percentile < 100 clips activation-scale outliers. quantize_upconvs
+        also runs the transposed convs in int8 as row-split 1x1 convs.
+        Check .delta_mm, the output deviation from the float graph on the
+        calibration batch, before deploying."""
+        from gelslim_depth_tpu_torch.models.quantize import quantize_unet
 
-    @torch.inference_mode()
-    def predict_depth_from_RGB(self, images, output_size: Tuple[int, int]) -> torch.Tensor:
-        """(N, 3, H, W) [0,255] images -> (N, 1, *output_size) mm depth."""
-        return fused_predict(self.config, self.net, self._tensor(images), tuple(output_size))
-
-    @torch.inference_mode()
-    def predict_dual_frames(self, frames, base_frame, output_size: Tuple[int, int]) -> torch.Tensor:
-        """(N, 6, H, W) dual frames (+ base) -> (N, 2, *output_size) mm depth."""
-        base = None if base_frame is None else self._tensor(base_frame)
-        return fused_predict_dual(
-            self.config, self.net, self._tensor(frames), base, tuple(output_size)
+        # a float32 UNet of its own: the quantized model moves between
+        # devices without taking this predictor's net along
+        q = quantize_unet(
+            self._unet(), _calibration_inputs(self.config, calib_frames, base_frame, self.device),
+            percentile=percentile, quantize_upconvs=quantize_upconvs,
         )
+        return QuantizedPredictor(self.config, q, compute_dtype=self.compute_dtype, device=self.device)
 
-    def predict_dual_frames_multi(self, frames_list, base_frame, output_size) -> torch.Tensor:
-        """Micro-batch entry: a list/tuple of k (1, 6, H, W) frames ->
-        (k, 2, *output_size), concatenated into one call."""
-        frames = torch.cat([self._tensor(f) for f in frames_list], dim=0)
-        return self.predict_dual_frames(frames, base_frame, output_size)
 
-    __call__ = predict_depth_from_RGB
+@torch.inference_mode()
+def _calibration_inputs(cfg: GelslimConfig, calib_frames, base_frame, device) -> torch.Tensor:
+    """Calibration preprocessing == serving preprocessing: the composed
+    diff/resize/normalize chain of ``fused_predict_dual``, honoring
+    config.interp_method and batched (N, 6, H, W) base frames (the kernel
+    front end computes the same values for the area case within float32
+    summation order, so this calibrates both front ends)."""
+    frames = torch.as_tensor(calib_frames, dtype=torch.float32, device=device)
+    base = None if base_frame is None else torch.as_tensor(base_frame, dtype=torch.float32, device=device)
+    return _preprocess(cfg, dual_frames_to_fingers(cfg, frames, base))
+
+
+class QuantizedPredictor(_Serving):
+    """Predictor running the int8-quantized U-Net (``models/quantize.py``)
+    inside the same pre- and post-processing as ``Predictor``, with the same
+    predict API. Build one with ``Predictor.quantize(calib_frames)`` or
+    ``QuantizedPredictor.from_checkpoint``. Runs on ``cuda`` unless
+    ``device="cpu"`` is passed."""
+
+    def __init__(self, config: GelslimConfig, q, *, compute_dtype: torch.dtype = torch.bfloat16, device=None):
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute dtype must be float32 or bfloat16, got {compute_dtype}")
+        self.config = config
+        self.device = _serving_device(device)
+        self.q = q.to(self.device)
+        self.compute_dtype = compute_dtype
+
+    def _net(self) -> Callable:
+        return functools.partial(self.q, compute_dtype=self.compute_dtype)
+
+    @property
+    def delta_mm(self) -> float:
+        """Calibration-batch output RMSE vs the float graph, in mm.
+
+        The network output is in normalized-depth units; the mm factor is
+        the denormalization slope of the configured depth method
+        (ref normalization_utils.py:101-130): (max-min)/norm_scale for the
+        min_max methods, std for mean_std."""
+        cfg = self.config
+        p = cfg.depth_normalization_parameters
+        if p is None:
+            raise ValueError(
+                "delta_mm needs config.depth_normalization_parameters "
+                "(the frozen training statistics) to convert to mm"
+            )
+        if cfg.depth_normalization_method == "mean_std":
+            factor = float(p[3])
+        else:
+            factor = abs(float(p[1]) - float(p[0])) / cfg.norm_scale
+        return float(self.q.float_delta) * factor
+
+    def save(self, ckpt_dir: str, name: str = None) -> str:
+        """Persist the quantized model so serving skips re-calibration."""
+        from gelslim_depth_tpu_torch.train.checkpoint import save_quantized
+
+        return save_quantized(ckpt_dir, self.config, self.q, name=name)
+
+    @classmethod
+    def from_checkpoint(cls, ckpt_dir: str, name: str = None, **kw) -> "QuantizedPredictor":
+        from gelslim_depth_tpu_torch.train.checkpoint import load_quantized
+
+        config, q = load_quantized(ckpt_dir, name)
+        return cls(config, q, **kw)
+
+    def recalibrate(self, calib_frames, base_frame=None, *, percentile: float = 100.0) -> "QuantizedPredictor":
+        """Re-derive the activation scales from new representative frames
+        on the same int8 weights, in place: the scale tensors are
+        overwritten, nothing is rebuilt. Check .delta_mm afterwards. Returns
+        self for chaining."""
+        from gelslim_depth_tpu_torch.models.quantize import calibrate_act_scales, measure_float_delta
+
+        q = self.q
+        x = _calibration_inputs(self.config, calib_frames, base_frame, self.device)
+        q.set_act_scales(calibrate_act_scales(
+            q.net, x, percentile=percentile, quantize_upconvs=q.has_int8_upconvs,
+        ))
+        q.float_delta.fill_(measure_float_delta(q, x))
+        return self
 
 
 def predict_depth_from_RGB(images, model: Predictor, output_size, config: GelslimConfig = None):

@@ -110,10 +110,14 @@ class DoubleConv(nn.Module):
             self.register_buffer(f"bn{i}_scale", inv.view(1, -1, 1, 1), persistent=False)
             self.register_buffer(f"bn{i}_shift", shift.view(1, -1, 1, 1), persistent=False)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, probe=None) -> torch.Tensor:
         conv1, _, act, conv2, _, _ = self.double_conv
+        if probe is not None:
+            probe("conv1", x)
         y = F.conv2d(x.to(dtype), conv1.weight, padding=1)
         y = act(y * self.bn0_scale + self.bn0_shift).to(dtype)
+        if probe is not None:
+            probe("conv2", y)
         y = F.conv2d(y, conv2.weight, padding=1)
         return act(y * self.bn1_scale + self.bn1_shift).to(dtype)
 
@@ -126,9 +130,9 @@ class Down(nn.Module):
             DoubleConv(cin, cout, cfg.kernel_size, cfg.activation),
         )
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, probe=None) -> torch.Tensor:
         pool, dc = self.maxpool_conv
-        return dc(pool(x), dtype)
+        return dc(pool(x), dtype, probe)
 
 
 class Up(nn.Module):
@@ -139,13 +143,15 @@ class Up(nn.Module):
         # the reference's Up never forwards kernel_size to its DoubleConv
         self.conv = DoubleConv(cin, cout, 3, cfg.activation)
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, skip: torch.Tensor, dtype: torch.dtype, probe=None) -> torch.Tensor:
+        if probe is not None:
+            probe("upconv", x)
         y = F.conv_transpose2d(x.to(dtype), self.up.weight, stride=self.stride)
         y = y + self.up.bias.view(1, -1, 1, 1)
         dy = skip.shape[2] - y.shape[2]
         dx = skip.shape[3] - y.shape[3]
         y = F.pad(y, [dx // 2, dx - dx // 2, dy // 2, dy - dy // 2])
-        return self.conv(torch.cat([skip.to(dtype), y], dim=1), dtype)
+        return self.conv(torch.cat([skip.to(dtype), y], dim=1), dtype, probe)
 
 
 class OutConv(nn.Module):
@@ -198,13 +204,20 @@ class UNet(nn.Module):
         self.compute_dtype = dtype
         return self
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, probe=None) -> torch.Tensor:
+        """probe(site, h), where given, is called with the input of every
+        conv: site is 'inc/conv1', 'down_0/conv2', 'up_1/upconv', ...; the
+        int8 calibration records its activation statistics this way."""
         dtype = self.compute_dtype
+
+        def at(block):
+            return None if probe is None else lambda conv, h: probe(f"{block}/{conv}", h)
+
         with _no_cudnn_tf32() if dtype == torch.float32 else contextlib.nullcontext():
-            skips = [self.inc(x, dtype)]
-            for down in self.down:
-                skips.append(down(skips[-1], dtype))
+            skips = [self.inc(x, dtype, at("inc"))]
+            for i, down in enumerate(self.down):
+                skips.append(down(skips[-1], dtype, at(f"down_{i}")))
             h = skips[-1]
             for j, up in enumerate(self.up):
-                h = up(h, skips[-2 - j], dtype)
+                h = up(h, skips[-2 - j], dtype, at(f"up_{j}"))
             return self.outc(h, dtype)

@@ -36,28 +36,47 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> str:
-    """Build csrc/<name>.cu unless a build of this exact source exists."""
+def _paths(name: str):
+    """(source, library file named by the source's and flags' hash)."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src], capture_output=True, text=True
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {src}:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
-    finally:
+    return src, os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+
+
+def build_all(names) -> dict:
+    """Build every csrc/<name>.cu that has no build of its exact source yet,
+    one nvcc process each, all started together; returns {name: library}."""
+    libs, jobs = {}, []
+    for name in names:
+        src, lib = _paths(name)
+        libs[name] = lib
+        if not os.path.exists(lib):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            jobs.append((src, lib, tmp, proc))
+    failed = []
+    for src, lib, tmp, proc in jobs:
+        log = proc.communicate()[0]
+        if proc.returncode == 0:
+            os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+        else:
+            failed.append(f"nvcc failed to build {src}:\n{log}")
         if os.path.exists(tmp):
             os.remove(tmp)
-    return lib
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
+
+
+def library_path(name: str) -> str:
+    """Build csrc/<name>.cu unless a build of this exact source exists."""
+    return build_all([name])[name]
 
 
 @functools.cache

@@ -1,19 +1,25 @@
-"""Checkpoint loading: the ``<name>.npz`` + ``<name>.json`` pair that the
-JAX package's ``train/checkpoint.py::save_weights`` writes.
+"""Serving checkpoints in the JAX package's formats
+(``gelslim_depth_tpu/train/checkpoint.py``), read and written:
+- ``save_weights`` / ``load_checkpoint``: ``<name>.npz`` + ``<name>.json``
+  (and optionally ``config_<name>.py`` and a reference-layout ``<name>.pth``);
+- ``save_quantized`` / ``load_quantized``: ``<name>_int8.npz`` +
+  ``<name>_int8.json``, the int8 model of ``models/quantize.py``.
 
-The ``.npz`` is flat, keyed by pytree paths (``params/inc/conv1_w``,
-``batch_stats/up_0/bn2_var``, ...); it is unflattened here by key name into
-nested dicts of numpy arrays, the layout ``models.params_from_jax`` reads.
-The save side is not ported yet.
+Each ``.npz`` is flat, keyed by pytree paths (``params/inc/conv1_w``,
+``batch_stats/up_0/bn2_var``, ``w8/up_1/conv2``, ...) in the JAX package's
+layouts (HWIO conv kernels); ``models.params_to_jax`` and
+``models.params_from_jax`` convert them to and from the port's state dict.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
 from typing import Any, Dict, Tuple
 
 import numpy as np
+import torch
 
 from gelslim_depth_tpu_torch.config import GelslimConfig
 
@@ -29,6 +35,46 @@ def _unflatten(flat: Dict[str, np.ndarray], prefix: str) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[leaf] = arr
     return tree
+
+
+def _flatten(tree: Dict[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    out = {}
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{key}/"))
+        else:
+            out[f"{prefix}{key}"] = np.asarray(v)
+    return out
+
+
+def save_weights(
+    ckpt_dir: str,
+    config: GelslimConfig,
+    state_dict,
+    *,
+    name: str = None,
+    emit_torch_pth: bool = True,
+    emit_python_config: bool = True,
+) -> str:
+    """The reference's checkpoint unit: weights + frozen config. Writes
+    <dir>/<name>.npz and <name>.json, which the JAX package's
+    ``load_checkpoint`` reads, and optionally config_<name>.py and the
+    reference-layout <name>.pth. state_dict is reference-layout."""
+    from gelslim_depth_tpu_torch.models.torch_import import params_to_jax
+
+    name = name or config.weights_name
+    os.makedirs(ckpt_dir, exist_ok=True)
+    params, stats = params_to_jax(state_dict, config.unet_config())
+    np.savez(os.path.join(ckpt_dir, f"{name}.npz"),
+             **_flatten(params, "params/"), **_flatten(stats, "batch_stats/"))
+    config.save_json(os.path.join(ckpt_dir, f"{name}.json"))
+    if emit_python_config:
+        config.emit_python_config(os.path.join(ckpt_dir, f"config_{name}.py"))
+    if emit_torch_pth:
+        torch.save({k: torch.as_tensor(v).detach().cpu().float() for k, v in state_dict.items()
+                    if not k.endswith("num_batches_tracked")},
+                   os.path.join(ckpt_dir, f"{name}.pth"))
+    return os.path.join(ckpt_dir, f"{name}.npz")
 
 
 def _resolve_checkpoint_name(ckpt_dir: str) -> str:
@@ -68,3 +114,92 @@ def load_checkpoint(ckpt_dir: str, name: str = None) -> Tuple[GelslimConfig, Any
     with np.load(os.path.join(ckpt_dir, f"{name}.npz")) as z:
         flat = {k: z[k] for k in z.files}
     return config, _unflatten(flat, "params/"), _unflatten(flat, "batch_stats/")
+
+
+def save_quantized(ckpt_dir: str, config: GelslimConfig, q, *, name: str = None) -> str:
+    """Persist a ``QuantizedUNet`` so serving can skip re-calibration: one
+    <name>_int8.npz holding the float params/stats, the int8 weights (HWIO,
+    or the JAX row-split pack for an upconv) with their scales, the static
+    activation scales as JSON bytes, and the calibration fitness delta, plus
+    the frozen config in <name>_int8.json (its own name, so that it never
+    clobbers a float checkpoint's <name>.json)."""
+    from gelslim_depth_tpu_torch.models.quantize import hwio_from_ohwi, rowsplit_to_jax
+    from gelslim_depth_tpu_torch.models.torch_import import params_to_jax
+
+    name = name or config.weights_name
+    os.makedirs(ckpt_dir, exist_ok=True)
+    params, stats = params_to_jax(q.net.state_dict(), q.cfg)
+    flat = {**_flatten(params, "params/"), **_flatten(stats, "batch_stats/")}
+    for site in q.sites:
+        w = q.w8(site).cpu()
+        w = rowsplit_to_jax(w, q.cfg.upconv_stride) if site.endswith("/upconv") else hwio_from_ohwi(w)
+        flat[f"w8/{site}"] = w.numpy()
+        flat[f"w_scale/{site}"] = q.w_scale(site).cpu().numpy()
+    flat["float_delta"] = np.asarray(np.float32(q.float_delta.item()))
+    flat["act_scale_json"] = np.frombuffer(json.dumps(q.act_scales()).encode(), dtype=np.uint8)
+    path = os.path.join(ckpt_dir, f"{name}_int8.npz")
+    np.savez(path, **flat)
+    config.save_json(os.path.join(ckpt_dir, f"{name}_int8.json"))
+    return path
+
+
+def load_quantized(ckpt_dir: str, name: str = None):
+    """Load a save_quantized artifact, the port's or the JAX package's ->
+    (config, QuantizedUNet on the CPU)."""
+    from gelslim_depth_tpu_torch.models.quantize import (
+        QuantizedUNet, _quantized_sites, ohwi_from_hwio, rowsplit_from_jax,
+    )
+    from gelslim_depth_tpu_torch.models.torch_import import params_from_jax
+    from gelslim_depth_tpu_torch.models.unet import UNet
+
+    if name is None:
+        cands = sorted(f[:-9] for f in os.listdir(ckpt_dir) if f.endswith("_int8.npz"))
+        if not cands:
+            raise FileNotFoundError(f"no *_int8.npz quantized artifact in {ckpt_dir}")
+        if len(cands) > 1:
+            raise ValueError(f"ambiguous quantized artifacts in {ckpt_dir}: {cands}; pass name=")
+        name = cands[0]
+    cfg_path = os.path.join(ckpt_dir, f"{name}_int8.json")
+    if not os.path.exists(cfg_path):  # artifacts from before the rename
+        cfg_path = os.path.join(ckpt_dir, f"{name}.json")
+    config = GelslimConfig.from_json(cfg_path)
+    unet_cfg = config.unet_config()
+    with np.load(os.path.join(ckpt_dir, f"{name}_int8.npz")) as z:
+        flat = {k: z[k] for k in z.files}
+    w8, w_scale = {}, {}
+    # the sites the artifact carries, with or without int8 upconvs
+    for key in flat:
+        if key.startswith("w8/"):
+            site = key[len("w8/"):]
+            scale_key = f"w_scale/{site}"
+            if scale_key not in flat:
+                raise KeyError(
+                    f"quantized artifact {name}_int8.npz carries {key} but "
+                    f"not {scale_key} — truncated or corrupt file?"
+                )
+            t = torch.from_numpy(np.array(flat[key]))
+            w8[site] = rowsplit_from_jax(t) if site.endswith("/upconv") else ohwi_from_hwio(t)
+            w_scale[site] = torch.from_numpy(np.array(flat[scale_key], dtype=np.float32))
+    # ... but a valid artifact carries at least every baseline conv site
+    missing = [f"w8/{b}/{c}" for b, c in _quantized_sites(unet_cfg) if f"{b}/{c}" not in w8]
+    if missing:
+        raise KeyError(
+            f"quantized artifact {name}_int8.npz is missing int8 weight "
+            f"arrays {missing} — truncated or corrupt file?"
+        )
+    if "act_scale_json" not in flat:
+        raise KeyError(
+            f"quantized artifact {name}_int8.npz is missing the "
+            f"act_scale_json activation-scale record — truncated or "
+            f"corrupt file?"
+        )
+    act_scale = json.loads(bytes(flat["act_scale_json"]).decode())
+    net = UNet(unet_cfg)
+    net.load_state_dict(params_from_jax(_unflatten(flat, "params/"), _unflatten(flat, "batch_stats/"), unet_cfg))
+    # the baseline sites first, in the order the forward runs them
+    order = [f"{b}/{c}" for b, c in _quantized_sites(unet_cfg)]
+    sites = order + sorted(s for s in w8 if s not in order)
+    return config, QuantizedUNet(
+        net, {s: w8[s] for s in sites}, {s: w_scale[s] for s in sites},
+        {k: float(v) for k, v in act_scale.items()}, float(flat["float_delta"]),
+    )

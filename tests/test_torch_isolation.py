@@ -47,6 +47,17 @@ def test_port_runs_with_jax_blocked(tmp_path):
         assert torch.allclose(out, out_k, atol=1e-5)
         out = pred.predict_depth_from_RGB(frames[:, :3], (16, 22))
         assert torch.isfinite(out).all()
+        # int8 serving: quantize, serve, save and load back, on the CPU
+        rng = np.random.RandomState(0)
+        calib = rng.uniform(0, 255, (2, 6, 16, 22)).astype(np.float32)
+        qpred = pred.quantize(calib, frames[0], quantize_upconvs=True)
+        out = qpred.predict_dual_frames(calib, frames[0], (16, 22))
+        assert out.shape == (2, 2, 16, 22) and torch.isfinite(out).all()
+        assert qpred.delta_mm >= 0 and qpred.q.has_int8_upconvs
+        from gelslim_depth_tpu_torch.inference import QuantizedPredictor
+        qpred.save("q")
+        again = QuantizedPredictor.from_checkpoint("q", device="cpu", compute_dtype=torch.float32)
+        assert torch.equal(again.predict_dual_frames(calib, frames[0], (16, 22)), out)
         assert not any(m.split(".")[0] in Blocker.BLOCKED for m in sys.modules)
         print("NO-JAX-OK")
         """
