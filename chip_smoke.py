@@ -38,6 +38,7 @@ from gelslim_depth_tpu_torch.ops.kernels import (
     build,
     conv2d_int8,
     conv2d_int8_reference,
+    conv_int8,
     fused_preprocess_dual,
     fused_preprocess_dual_reference,
 )
@@ -49,8 +50,8 @@ KERNEL_SOURCE = "gelslim_depth_tpu_torch/csrc/fused_preprocess_dual.cu"
 KERNEL_REPLACES = "gelslim_depth_tpu/ops/pallas/preprocess_kernel.py:41"
 CONV_SOURCE = "gelslim_depth_tpu_torch/csrc/conv2d_int8.cu"
 CONV_REPLACES = "gelslim_depth_tpu/models/quantize.py:164"
+CONV_FAST_PATH = conv_int8.PATHS[-1]  # the mainloop every flagship launch must take
 MULT = [1 / 255.0] * 3  # 0_255_to_0_1
-TIMED_SITES = ("inc/conv2", "down_3/conv2", "up_3/conv1")  # conv2d_int8 timed at N=64
 ADD = [0.0] * 3
 
 # data-sheet peaks: device memory bytes/s, float32 (non-tensor-core) FLOP/s
@@ -114,11 +115,11 @@ def flagship_config() -> GelslimConfig:
     )
 
 
-def flagship_sites(n_img: int):
-    """(site, NHWC input shape, Cout, k) of the flagship's 17 quantized
-    convs at n_img finger images."""
+def flagship_launches(n_img: int, int8_upconvs: bool = False):
+    """The flagship's 17 quantized conv launches at n_img finger images,
+    with their serving epilogues (models/quantize.py::serving_launches)."""
     cfg = flagship_config()
-    return quantize_module.quantized_site_shapes(cfg.unet_config(), n_img, cfg.input_tactile_image_size)
+    return quantize_module.serving_launches(cfg.unet_config(), n_img, cfg.input_tactile_image_size, int8_upconvs)
 
 
 def seeded_state_dict(cfg, seed: int):
@@ -249,78 +250,116 @@ def check_kernel(g):
     return flagship_err
 
 
-def conv_bound_ms(x_shape, cout, k, out_bytes, bw, int8_peak):
-    """(ms for the bytes, ms for the operations) of a stride-1 'same' kxk
-    conv: the int8 input and weights read once, the output written once and
-    the three float32 epilogue vectors; 2 operations a multiply-add."""
-    n, h, w, cin = x_shape
-    m, kk = n * h * w, k * k * cin
-    nbytes = n * h * w * cin + cout * kk + m * cout * out_bytes + 3 * 4 * cout
+def conv_bound_ms(launch, out_bytes, bw, int8_peak):
+    """(ms for the bytes, ms for the operations) of one stride-1 kxk
+    conv2d_int8 launch: its int8 inputs (both sources) and weights read
+    once, its outputs written once (n_q int8 ones, and the float one of
+    out_bytes an element where it stores one) and the three float32 epilogue
+    vectors; 2 operations a multiply-add."""
+    n, h, w, cin = launch.x_shape
+    x2 = launch.x2_shape
+    cin += x2[3] if x2 else 0
+    m, kk, cout = n * h * w, launch.k * launch.k * cin, launch.cout
+    out = launch.n_q + (out_bytes if launch.store_float else 0)
+    nbytes = n * h * w * launch.x_shape[3] + (x2[0] * x2[1] * x2[2] * x2[3] if x2 else 0) + cout * kk + m * cout * out + 3 * 4 * cout
     return 1e3 * nbytes / bw, 1e3 * 2 * m * kk * cout / int8_peak
 
 
-def conv_inputs(g, x_shape, cout, k, act="relu", dtype=torch.bfloat16, shuffle=1):
-    """Random int8 input and weights, scales of a calibrated site, and the
-    epilogue of a DoubleConv site (BN + activation) or, with shuffle > 1, of
-    the row-split upconv (bias, depth-to-space store)."""
+def conv_inputs(g, launch, act="relu", dtype=torch.bfloat16, shuffle=1):
+    """Random int8 inputs (both sources) and weights, scales of a calibrated
+    site, and the epilogue of a DoubleConv site (BN + activation) or, with
+    shuffle > 1, of the row-split upconv (bias, depth-to-space store), with
+    the launch's int8 outputs. Returns (qx, w, scale, epilogue, sources)
+    with sources the qx2 and offset keywords."""
+    cout = launch.cout
+
     def vec(lo, hi):
         return torch.rand(cout, generator=g, device="cuda") * (hi - lo) + lo
 
-    qx = torch.randint(-127, 128, x_shape, generator=g, device="cuda", dtype=torch.int8)
-    w = torch.randint(-127, 128, (cout, k, k, x_shape[-1]), generator=g, device="cuda", dtype=torch.int8)
+    def ints(shape):
+        return torch.randint(-127, 128, shape, generator=g, device="cuda", dtype=torch.int8)
+
+    qx = ints(launch.x_shape)
+    qx2 = ints(launch.x2_shape) if launch.x2_shape else None
+    cin = launch.x_shape[3] + (launch.x2_shape[3] if qx2 is not None else 0)
+    w = ints((cout, launch.k, launch.k, cin))
+    # the next site's scales: the int8 outputs land across their whole range
+    q_scales = tuple(torch.full((1,), v, device="cuda") for v in (0.05, 0.11)[:launch.n_q])
+    q = dict(q_scales=q_scales, store_float=launch.store_float)
     if shuffle > 1:
-        ep = Epilogue(bias=vec(-1, 1), act=act, out_dtype=dtype, shuffle=shuffle)
+        ep = Epilogue(bias=vec(-1, 1), act=act, out_dtype=dtype, shuffle=shuffle, **q)
     else:
-        ep = Epilogue(bn_mul=vec(0.5, 1.5), bn_add=vec(-0.5, 0.5), act=act, out_dtype=dtype)
-    return qx, w, vec(1e-5, 1e-4), ep
+        ep = Epilogue(bn_mul=vec(0.5, 1.5), bn_add=vec(-0.5, 0.5), act=act, out_dtype=dtype, **q)
+    return qx, w, vec(1e-5, 1e-4), ep, dict(qx2=qx2, offset=launch.offset)
+
+
+def as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
 
 
 def check_conv_int8(g):
     """conv2d_int8 vs its plain twin on the same inputs. The int32 sums
     (stored as float32 with scale 1: exact, |acc| < 2^24 at these sizes)
-    and the relu or bare epilogue must agree bit for bit; tanh and mish
-    within 1e-6 (float32) or one bfloat16 ulp (libm against PyTorch).
-    Returns the largest |diff| of the epilogue outputs over every case."""
-    shapes = []
-    for _, x_shape, cout, k in flagship_sites(1):  # the distinct flagship sites at N=1
-        if (x_shape, cout, k) not in shapes:
-            shapes.append((x_shape, cout, k))
-    cases = [(x, cout, k, 1, "relu", torch.bfloat16, 1) for x, cout, k in shapes] + [
-        ((16, 40, 53, 256), 256, 3, 1, "relu", torch.bfloat16, 1),  # down_1/conv2 at N=8
-        ((2, 17, 23, 4), 8, 3, 1, "relu", torch.float32, 1),
-        ((2, 17, 23, 8), 16, 3, 1, "relu", torch.float32, 1),
-        ((2, 17, 23, 24), 40, 3, 1, "relu", torch.bfloat16, 1),
-        ((2, 17, 23, 16), 24, 5, 1, "relu", torch.float32, 1),  # k=5, pad 1: 15x21 out
-        ((1, 10, 13, 1024), 4 * 512, 1, 0, "none", torch.bfloat16, 2),  # up_0/upconv, row-split
-        ((1, 80, 106, 128), 4 * 64, 1, 0, "none", torch.bfloat16, 2),  # up_3/upconv
-        ((2, 9, 11, 24), 4 * 6, 1, 0, "none", torch.float32, 2),
-        ((2, 17, 23, 32), 70, 3, 1, "tanh", torch.float32, 1),
-        ((2, 17, 23, 32), 64, 3, 1, "mish", torch.float32, 1),
-        ((2, 17, 23, 32), 64, 3, 1, "mish", torch.bfloat16, 1),
+    and every output of the relu or bare epilogue must agree bit for bit;
+    tanh and mish within 1e-6 (float32) or one bfloat16 ulp (libm against
+    PyTorch), and their int8 outputs within one step. Every flagship launch
+    must take the CONV_FAST_PATH mainloop. Returns the largest |diff| of
+    the epilogue outputs over every case."""
+    L = quantize_module.SiteLaunch
+    # (launch, pad, act, dtype, shuffle, the flagship's): every flagship launch
+    # at N=1 with its serving epilogue, two at N=8, then the shapes and
+    # epilogues the flagship does not reach
+    cases = [(launch, 1, "relu", torch.bfloat16, 1, True) for launch in flagship_launches(1)] + [
+        (launch, 1, "relu", torch.float32, 1, True) for launch in flagship_launches(16)[3:5]] + [
+        (L("up_0/upconv", (1, 10, 13, 1024), None, (0, 0), 4 * 512, 1, 1, False), 0, "none", torch.bfloat16, 2, True),
+        (L("up_3/upconv", (1, 80, 106, 128), None, (0, 0), 4 * 64, 1, 1, False), 0, "none", torch.bfloat16, 2, True),
+        (L("", (1, 80, 106, 128), None, (0, 0), 4 * 64, 1, 0, True), 0, "none", torch.bfloat16, 2, False),
+        (L("", (2, 17, 23, 64), (2, 16, 21, 64), (1, 1), 96, 3, 2, True), 1, "relu", torch.float32, 1, False),
+        (L("", (2, 17, 23, 128), (2, 15, 23, 64), (1, 0), 72, 3, 1, False), 1, "relu", torch.bfloat16, 1, False),
+        (L("", (2, 17, 23, 4), None, (0, 0), 8, 3, 0, True), 1, "relu", torch.float32, 1, False),
+        (L("", (2, 17, 23, 8), None, (0, 0), 16, 3, 2, True), 1, "relu", torch.float32, 1, False),
+        (L("", (2, 17, 23, 24), None, (0, 0), 40, 3, 1, True), 1, "relu", torch.bfloat16, 1, False),
+        (L("", (2, 17, 23, 24), (2, 17, 22, 8), (0, 1), 40, 3, 2, False), 1, "relu", torch.bfloat16, 1, False),
+        (L("", (2, 17, 23, 16), None, (0, 0), 24, 5, 1, True), 1, "relu", torch.float32, 1, False),  # k=5, pad 1
+        (L("", (2, 9, 11, 24), None, (0, 0), 4 * 6, 1, 1, True), 0, "none", torch.float32, 2, False),
+        (L("", (2, 17, 23, 32), None, (0, 0), 70, 3, 0, True), 1, "tanh", torch.float32, 1, False),
+        (L("", (2, 17, 23, 64), None, (0, 0), 64, 3, 2, True), 1, "mish", torch.float32, 1, False),
+        (L("", (2, 17, 23, 32), None, (0, 0), 64, 3, 1, True), 1, "mish", torch.bfloat16, 1, False),
     ]
     worst = 0.0
-    for x_shape, cout, k, pad, act, dtype, shuffle in cases:
-        qx, w, scale, ep = conv_inputs(g, x_shape, cout, k, act, dtype, shuffle)
-        got = conv2d_int8(qx, w, pad=pad, scale=scale, epilogue=ep)
-        want = conv2d_int8_reference(qx, w, pad=pad, scale=scale, epilogue=ep)
-        ones, bare = torch.ones(cout, device="cuda"), Epilogue(shuffle=shuffle)
-        acc = conv2d_int8(qx, w, pad=pad, scale=ones, epilogue=bare)
-        acc_want = conv2d_int8_reference(qx, w, pad=pad, scale=ones, epilogue=bare)
+    for launch, pad, act, dtype, shuffle, flagship in cases:
+        qx, w, scale, ep, src = conv_inputs(g, launch, act, dtype, shuffle)
+        before = dict(conv2d_int8.launches_by_path)
+        got = as_tuple(conv2d_int8(qx, w, pad=pad, scale=scale, epilogue=ep, **src))
+        path = next(k for k, v in conv2d_int8.launches_by_path.items() if v != before[k])
+        want = as_tuple(conv2d_int8_reference(qx, w, pad=pad, scale=scale, epilogue=ep, **src))
+        ones, bare = torch.ones(launch.cout, device="cuda"), Epilogue(shuffle=shuffle)
+        acc = conv2d_int8(qx, w, pad=pad, scale=ones, epilogue=bare, **src)
+        acc_want = conv2d_int8_reference(qx, w, pad=pad, scale=ones, epilogue=bare, **src)
         torch.cuda.synchronize()
-        tag = f"{x_shape} -> {cout}, k={k} pad={pad} {act} {str(dtype)[6:]} shuffle={shuffle}"
-        check(got.shape == want.shape and got.dtype == dtype, f"conv2d_int8 {tag}: {tuple(got.shape)} {got.dtype}")
+        tag = (f"{launch.site or 'extra'} {launch.x_shape}+{launch.x2_shape}@{launch.offset} -> {launch.cout}, "
+               f"k={launch.k} pad={pad} {act} {str(dtype)[6:]} shuffle={shuffle} n_q={launch.n_q} "
+               f"float={launch.store_float} path={path}")
+        check(len(got) == len(want) and all(a.shape == b.shape and a.dtype == b.dtype for a, b in zip(got, want)),
+              f"conv2d_int8 {tag}: outputs {[(tuple(a.shape), a.dtype) for a in got]}")
         acc_err = (acc - acc_want).abs().max().item()
-        err = (got.float() - want.float()).abs().max().item()
+        errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, want)]
         print(f"conv2d_int8 vs plain: {tag}: int32 sums max|diff| {acc_err:.1f} "
-              f"(max|acc| {acc_want.abs().max().item():.0f}), output max|diff| {err:.3e}", flush=True)
+              f"(max|acc| {acc_want.abs().max().item():.0f}), outputs max|diff| {errs}", flush=True)
         check(acc_err == 0 and acc_want.abs().max().item() < 2 ** 24, f"conv2d_int8 sums differ ({tag})")
-        if act in ("relu", "none"):
-            check(err == 0, f"conv2d_int8 disagrees with plain ({tag}): {err}")
-        else:
-            rtol = 0 if dtype == torch.float32 else 2.0 ** -8
-            check(torch.allclose(got.float(), want.float(), rtol=rtol, atol=1e-6),
-                  f"conv2d_int8 disagrees with plain ({tag}): {err}")
-        worst = max(worst, err)
+        if flagship:
+            check(path == CONV_FAST_PATH, f"conv2d_int8 {tag}: took the {path} mainloop, not {CONV_FAST_PATH}")
+        for a, b, err in zip(got, want, errs):
+            if act in ("relu", "none"):
+                check(torch.equal(a, b), f"conv2d_int8 disagrees with plain ({tag}): {err}")
+            elif a.dtype == torch.int8:
+                check(err <= 1, f"conv2d_int8 int8 output disagrees with plain ({tag}): {err}")
+            else:
+                rtol = 0 if dtype == torch.float32 else 2.0 ** -8
+                check(torch.allclose(a.float(), b.float(), rtol=rtol, atol=1e-6),
+                      f"conv2d_int8 disagrees with plain ({tag}): {err}")
+            if a.dtype != torch.int8:
+                worst = max(worst, err)
     return worst
 
 
@@ -417,10 +456,11 @@ def drive_int8_path(pred16, frames64, base):
     served at N = 1, 8, 64, and once at N=8 with int8 upconvs. Each call
     must launch fused_preprocess_dual once and conv2d_int8 once per
     quantized site (17), plus one per int8 upconv (4: each upconv's k x k
-    matmuls are one 1x1 launch with a depth-to-space store). Holds the
-    depth to the bf16 float graph's within the parity gate, and the kernel
-    route to the same model through the plain twins. Returns the launch
-    counts over the run, quantization included, and the predictor."""
+    matmuls are one 1x1 launch with a depth-to-space store), every one on
+    the CONV_FAST_PATH mainloop. Holds the depth to the bf16 float graph's
+    within the parity gate, and the kernel route to the same model through
+    the plain twins bit for bit. Returns the launch counts over the run,
+    quantization included, and the predictor."""
     sizes = (1, 8, 64)
     with torch.inference_mode():
         ref = {n: pred16.predict_dual_frames(frames64[:n], base, FRAME) for n in sizes}
@@ -433,18 +473,21 @@ def drive_int8_path(pred16, frames64, base):
     check(qpred.delta_mm < 0.05, f"int8 delta_mm {qpred.delta_mm} mm")
     outs = {}
     for n in sizes:
-        before = fused_preprocess_dual.launches, conv2d_int8.launches
+        before = fused_preprocess_dual.launches, conv2d_int8.launches, conv2d_int8.launches_by_path[CONV_FAST_PATH]
         outs[n] = qpred.predict_dual_frames(frames64[:n], base, FRAME)
-        rose = fused_preprocess_dual.launches - before[0], conv2d_int8.launches - before[1]
-        check(rose == (1, sites), f"int8 N={n}: launches rose by {rose}, want (1, {sites})")
+        rose = (fused_preprocess_dual.launches - before[0], conv2d_int8.launches - before[1],
+                conv2d_int8.launches_by_path[CONV_FAST_PATH] - before[2])
+        check(rose == (1, sites, sites), f"int8 N={n}: launches rose by {rose}, want (1, {sites}, {sites} {CONV_FAST_PATH})")
     qpred_up = pred16.quantize(frames64[:4], base, quantize_upconvs=True)
     n_up = len(quantize_module._upconv_sites(qpred_up.q.cfg))
-    before = conv2d_int8.launches
+    before = conv2d_int8.launches, conv2d_int8.launches_by_path[CONV_FAST_PATH]
     out_up = qpred_up.predict_dual_frames(frames64[:8], base, FRAME)
-    rose = conv2d_int8.launches - before
-    check(rose == sites + n_up == 21, f"int8 upconvs N=8: conv2d_int8 launches rose by {rose}")
+    rose = conv2d_int8.launches - before[0], conv2d_int8.launches_by_path[CONV_FAST_PATH] - before[1]
+    check(rose == (sites + n_up,) * 2 and sites + n_up == 21,
+          f"int8 upconvs N=8: conv2d_int8 launches rose by {rose}, want 21 {CONV_FAST_PATH}")
     torch.cuda.synchronize()
-    launches = {"fused_preprocess_dual": fused_preprocess_dual.launches, "conv2d_int8": conv2d_int8.launches}
+    launches = {"fused_preprocess_dual": fused_preprocess_dual.launches, "conv2d_int8": conv2d_int8.launches,
+                "conv2d_int8_by_path": dict(conv2d_int8.launches_by_path)}
     print(f"int8 main path launches: {launches}", flush=True)
     check(launches["conv2d_int8"] > 0, "the int8 path launched no conv2d_int8")
 
@@ -467,45 +510,55 @@ def drive_int8_path(pred16, frames64, base):
         rmse = (got - want).pow(2).mean().sqrt().item()
         print(f"{tag}: kernel route vs plain twins RMSE {rmse:.3e} mm, "
               f"max|diff| {(got - want).abs().max().item():.3e} mm", flush=True)
-        check(rmse <= 1e-4, f"{tag}: kernel route vs plain twins RMSE {rmse} mm")
+        check(torch.equal(got, want), f"{tag}: kernel route vs plain twins RMSE {rmse} mm, not 0")
     return launches, qpred
 
 
+def im2col(qx, qx2, offset, k):
+    """The int8 GEMM operand of a 3x3 'same' conv of [qx, qx2 placed]:
+    (N*H*W, 9*C), tap-major as the weights are."""
+    if qx2 is not None:
+        qx = torch.cat([qx, conv_int8.place(qx2, qx.shape[1:3], offset)], dim=-1)
+    n, h, wd, cin = qx.shape
+    xp = F.pad(qx, (0, 0, 1, 1, 1, 1))
+    cols = torch.stack([xp[:, dy:dy + h, dx:dx + wd] for dy in range(k) for dx in range(k)], dim=3)
+    return cols.reshape(n * h * wd, k * k * cin)
+
+
 def measure_conv_sites(peaks, g):
-    """conv2d_int8 at three flagship sites at N=64 dual frames (128 finger
-    images), held bit for bit against its twin there: kernel, plain twin,
-    the bound, torch._int_mm on the same GEMM
-    with the input already im2col'd (the int8 tensor-core yardstick; the
-    port never calls it), and the bf16 cuDNN conv of the same shape."""
+    """conv2d_int8 at all 17 flagship sites at N=64 dual frames (128 finger
+    images), each with its serving epilogue, held bit for bit against its
+    twin there: kernel, plain twin, the bound of what the launch reads and
+    writes, and torch._int_mm on the same GEMM with the input already
+    im2col'd (the int8 tensor-core yardstick; the port never calls it)."""
     bw, _, int8_peak = peaks
     out = {}
-    for site, x_shape, cout, k in flagship_sites(128):
-        if site not in TIMED_SITES:
-            continue
-        check(k == 3, f"{site}: the im2col yardstick assumes a 3x3 conv, got {k}x{k}")
-        qx, w, scale, ep = conv_inputs(g, x_shape, cout, k)
-        same = torch.equal(conv2d_int8(qx, w, pad=1, scale=scale, epilogue=ep),
-                           conv2d_int8_reference(qx, w, pad=1, scale=scale, epilogue=ep))
-        check(same, f"conv2d_int8 disagrees with plain at {site} N=64")
-        kernel = device_ms(lambda: conv2d_int8(qx, w, pad=1, scale=scale, epilogue=ep))
-        plain = device_ms(lambda: conv2d_int8_reference(qx, w, pad=1, scale=scale, epilogue=ep), calls=3)
-        n, h, wd, cin = x_shape
-        xp = F.pad(qx, (0, 0, 1, 1, 1, 1))
-        cols = torch.stack([xp[:, dy:dy + h, dx:dx + wd] for dy in range(3) for dx in range(3)], dim=3)
-        a = cols.reshape(n * h * wd, 9 * cin)
-        del cols, xp
-        b = w.reshape(cout, -1).t()
-        library = device_ms(lambda: torch._int_mm(a, b))
-        del a
-        xb = torch.randn((n, cin, h, wd), generator=g, device="cuda").to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        wb = torch.randn((cout, cin, 3, 3), generator=g, device="cuda").to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        cudnn = device_ms(lambda: F.conv2d(xb, wb, padding=1))
-        del xb, wb, qx
-        t_bytes, t_ops = conv_bound_ms(x_shape, cout, k, 2, bw, int8_peak)
-        out[site] = dict(x_shape=list(x_shape), cout=cout, ms=kernel, plain_ms=plain, library_ms=library,
-                         cudnn_bf16_ms=cudnn, bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops)
-        print(f"conv2d_int8 {site} N=64 {x_shape}->{cout}: kernel {kernel:.4f} ms, plain {plain:.4f} ms, "
-              f"_int_mm {library:.4f} ms, bf16 cuDNN {cudnn:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+    for launch in flagship_launches(128):
+        check(launch.k == 3, f"{launch.site}: the im2col yardstick assumes a 3x3 conv, got {launch.k}")
+        qx, w, scale, ep, src = conv_inputs(g, launch)
+
+        def kernel():
+            return conv2d_int8(qx, w, pad=1, scale=scale, epilogue=ep, **src)
+
+        def plain():
+            return conv2d_int8_reference(qx, w, pad=1, scale=scale, epilogue=ep, **src)
+
+        same = all(torch.equal(a, b) for a, b in zip(as_tuple(kernel()), as_tuple(plain())))
+        check(same, f"conv2d_int8 disagrees with plain at {launch.site} N=64")
+        kernel_ms = device_ms(kernel)
+        plain_ms = device_ms(plain, calls=3)
+        a = im2col(qx, src["qx2"], launch.offset, 3)
+        b = w.reshape(launch.cout, -1).t()
+        library_ms = device_ms(lambda: torch._int_mm(a, b))
+        del a, qx, src
+        t_bytes, t_ops = conv_bound_ms(launch, 2, bw, int8_peak)
+        out[launch.site] = dict(x_shape=list(launch.x_shape), x2_shape=launch.x2_shape and list(launch.x2_shape),
+                                cout=launch.cout, n_q=launch.n_q, store_float=launch.store_float, ms=kernel_ms,
+                                plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+                                bytes_ms=t_bytes, ops_ms=t_ops)
+        print(f"conv2d_int8 {launch.site} N=64 {launch.x_shape}+{launch.x2_shape}->{launch.cout} n_q={launch.n_q} "
+              f"float={launch.store_float}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"_int_mm {library_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
               f"(bytes {t_bytes:.4f}, operations {t_ops:.4f})", flush=True)
         torch.cuda.empty_cache()
     return out
@@ -562,8 +615,7 @@ def measure(pred16, qpred, frames64, base, peaks):
                   f"{ops_per_call:.1f} device ops/call; device time: "
                   + "; ".join(f"{c} {v:.3f}" for c, v in shares.items()), flush=True)
             if tag == "int8":
-                bounds = [conv_bound_ms(x_shape, cout, k, 2, bw, int8_peak)
-                          for _, x_shape, cout, k in flagship_sites(2 * n)]
+                bounds = [conv_bound_ms(launch, 2, bw, int8_peak) for launch in flagship_launches(2 * n)]
                 rec["conv2d_int8_ms_per_call"] = ms["conv2d_int8"]
                 rec["conv2d_int8_bound_ms_per_call"] = sum(max(b) for b in bounds)
                 rec["conv2d_int8_bound_ms_by"] = {"bytes": sum(b[0] for b in bounds), "operations": sum(b[1] for b in bounds)}
@@ -614,7 +666,7 @@ def main() -> None:
         "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
     }, {
-        # times summed over the three TIMED_SITES at N=64; library: torch._int_mm
+        # times summed over the 17 flagship sites at N=64; library: torch._int_mm
         "name": "conv2d_int8",
         "route": "cuda",
         "source": CONV_SOURCE,

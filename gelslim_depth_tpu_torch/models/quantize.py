@@ -13,10 +13,11 @@ scheme, rounding point for rounding point:
   the float upconvs and ``inc/conv1`` run in the compute dtype.
 - Each quantized conv is ``conv2d_int8``: int32 sums, then one epilogue
   ``float(acc) * (s_x * s_w[o])``, the folded eval BatchNorm and the
-  activation, stored in the compute dtype.
+  activation, rounded to the compute dtype, and stored int8 at its
+  consumers' scales (the compute dtype only where a float op reads it).
 - Skips are quantized at production with their consumer ``up_j/conv1``'s
-  scale; the upconv output is quantized with the same scale and padded, and
-  ``up_j/conv1`` reads the int8 concat ``[skip, up]``.
+  scale; the upconv output is quantized with the same scale, and
+  ``up_j/conv1`` reads the int8 concat ``[skip, pad(up)]`` in place.
 
 Layouts. Activations stay NHWC through the int8 graph; the float convs run
 on their channels-last NCHW views. The port stores int8 conv weights OHWI
@@ -31,7 +32,7 @@ package's HWIO and ``(s, cin, s*cout)`` layouts.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,10 +59,7 @@ def quantized_site_shapes(
     """(site, NHWC input shape, Cout, kernel size) of every quantized conv,
     in ``_quantized_sites`` order, for an ``(n, n_channels, *hw)`` input:
     read off a forward of the float U-Net on the meta device."""
-    with torch.device("meta"):
-        net = UNet(cfg)
-        shapes = {}
-        net(torch.empty((n, cfg.n_channels, *hw)), probe=lambda site, h: shapes.setdefault(site, h.shape))
+    net, shapes = _probe_shapes(cfg, n, hw)
     out = []
     for block, conv in _quantized_sites(cfg):
         site = f"{block}/{conv}"
@@ -69,6 +67,59 @@ def quantized_site_shapes(
         b, c, h, wd = shapes[site]
         out.append((site, (b, h, wd, c), w.shape[0], w.shape[2]))
     return out
+
+
+class SiteLaunch(NamedTuple):
+    """One quantized conv's ``conv2d_int8`` launch in a ``QuantizedUNet``
+    forward: its input (``x2_shape``: the upconv output that ``up_j/conv1``
+    reads beside its skip, at ``offset``), Cout, kernel size, and what its
+    epilogue stores: ``n_q`` int8 outputs, and the compute-dtype one where
+    ``store_float``."""
+
+    site: str
+    x_shape: Tuple[int, int, int, int]  # NHWC, the skip at up_j/conv1
+    x2_shape: Optional[Tuple[int, int, int, int]]
+    offset: Tuple[int, int]
+    cout: int
+    k: int
+    n_q: int
+    store_float: bool
+
+
+def serving_launches(cfg: UNetConfig, n: int, hw: Tuple[int, int], int8_upconvs: bool = False) -> List[SiteLaunch]:
+    """The launches of the quantized sites, in ``_quantized_sites`` order,
+    for an ``(n, n_channels, *hw)`` input, as ``QuantizedUNet.forward``
+    makes them (with or without int8 upconvs)."""
+    L = cfg.num_levels
+    _, shapes = _probe_shapes(cfg, n, hw)
+    out = []
+    for site, x_shape, cout, k in quantized_site_shapes(cfg, n, hw):
+        block, conv = site.split("/")
+        x2_shape, offset, n_q = None, (0, 0), 1
+        if block.startswith("up_"):
+            j = int(block[3:])
+            if conv == "conv1":  # [skip, up]: each half of the channels
+                b, h, w, c = x_shape
+                hin, win = shapes[f"{block}/upconv"][2:]
+                h2, w2 = [(e - 1) * cfg.upconv_stride + cfg.kernel_size - 1 for e in (hin, win)]
+                x_shape, x2_shape = (b, h, w, c // 2), (b, h2, w2, c // 2)
+                offset = ((h - h2) // 2, (w - w2) // 2)
+            elif j == L - 2 or not int8_upconvs:
+                n_q = 0
+        elif conv == "conv2":
+            level = 0 if block == "inc" else int(block[5:]) + 1
+            n_q = 2 if level < L - 1 else int(int8_upconvs)
+        out.append(SiteLaunch(site, x_shape, x2_shape, offset, cout, k, n_q, n_q == 0))
+    return out
+
+
+def _probe_shapes(cfg: UNetConfig, n: int, hw: Tuple[int, int]):
+    """(meta-device UNet, {probe site: NCHW input shape}) of a forward."""
+    with torch.device("meta"):
+        net = UNet(cfg)
+        shapes = {}
+        net(torch.empty((n, cfg.n_channels, *hw)), probe=lambda site, h: shapes.setdefault(site, h.shape))
+    return net, shapes
 
 
 def _upconv_sites(cfg: UNetConfig) -> List[str]:
@@ -284,29 +335,40 @@ class QuantizedUNet(nn.Module):
             self._float_cache = {key: ws}
         return self._float_cache[key]
 
-    def _int8(self, site: str, qx: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        """One quantized conv of a DoubleConv, its BN and activation fused."""
+    def _int8(self, site: str, qx: torch.Tensor, dtype: torch.dtype, consumers=(), *, qx2=None, offset=(0, 0)):
+        """One quantized conv of a DoubleConv, its BN and activation fused.
+        With ``consumers``, it stores its output int8 at each consumer
+        site's activation scale (the buffers ``set_act_scales`` overwrites
+        in place) and returns those; else the output in ``dtype``."""
         block, conv = site.split("/")
         dc = _double_conv(self.net, block)
         i = int(conv[-1]) - 1
         return conv2d_int8(
-            qx, self.w8(site), pad=1, scale=self._escale(site),
+            qx, self.w8(site), pad=1, scale=self._escale(site), qx2=qx2, offset=offset,
             epilogue=Epilogue(
                 bn_mul=getattr(dc, f"bn{i}_scale").view(-1), bn_add=getattr(dc, f"bn{i}_shift").view(-1),
                 act=self.cfg.activation, out_dtype=dtype,
+                q_scales=tuple(self.act_scale(c) for c in consumers), store_float=not consumers,
             ),
         )
 
-    def _block(self, block: str, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        h = self._int8(f"{block}/conv1", _quant_act(h, self.act_scale(f"{block}/conv1")), dtype)
-        return self._int8(f"{block}/conv2", _quant_act(h, self.act_scale(f"{block}/conv2")), dtype)
-
     @torch.no_grad()
     def forward(self, x: torch.Tensor, compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-        """NCHW float input -> NCHW float32 logits, the int8 eval forward."""
+        """NCHW float input -> NCHW float32 logits, the int8 eval forward.
+
+        Every int8 conv stores what its consumers read: int8 at the next
+        conv's scale, and at the skip's consumer ``up_j/conv1``'s scale as
+        well where a skip leaves the encoder (``inc/conv2``, ``down_i/conv2``);
+        the compute dtype only where a float op reads it (a float upconv,
+        the head). The max-pools run on the int8 pre-pool tensors, which is
+        exact because quantization is monotone, and ``up_j/conv1`` reads the
+        skip and the upconv output in place of their padded concat. So the
+        int8 tensors are those of the JAX package's order of operations
+        (quantize at production), bit for bit."""
         dtype = compute_dtype
         cfg, L = self.cfg, self.cfg.num_levels
         ws = self._float_weights(dtype)
+        up8 = self.has_int8_upconvs
 
         def nhwc(y):  # a channels-last NCHW tensor's NHWC view
             return y.permute(0, 2, 3, 1).contiguous()
@@ -318,37 +380,53 @@ class QuantizedUNet(nn.Module):
             inc = self.net.inc
             act = inc.double_conv[2]
             y = F.conv2d(x.to(dtype).contiguous(memory_format=torch.channels_last), ws["inc"], padding=1)
-            h = nhwc(act(y * inc.bn0_scale + inc.bn0_shift).to(dtype))
-            h = self._int8("inc/conv2", _quant_act(h, self.act_scale("inc/conv2")), dtype)
+            q = _quant_act(nhwc(act(y * inc.bn0_scale + inc.bn0_shift).to(dtype)), self.act_scale("inc/conv2"))
 
-            # each skip is stored int8 at its consumer up_j/conv1's scale
+            def to_upconv(site, q, j):  # the site's output as up_j's upconv reads it
+                if up8:
+                    return self._int8(site, q, dtype, (f"up_{j}/upconv",))[0]
+                return self._int8(site, q, dtype)
+
+            # level l's block (inc, then down_0 ...) stores its skip at its
+            # consumer up_{L-2-l}/conv1's scale and its pre-pool output at
+            # down_l/conv1's; the bottom block feeds up_0's upconv
             skips = []
-            for i in range(L - 1):
-                skips.append(_quant_act(h, self.act_scale(f"up_{L - 2 - i}/conv1")))
-                h = nhwc(F.max_pool2d(nchw(h), cfg.maxpool_size))
-                h = self._block(f"down_{i}", h, dtype)
+            for level, block in enumerate(["inc"] + [f"down_{i}" for i in range(L - 1)]):
+                if level > 0:
+                    (q,) = self._int8(f"{block}/conv1", q, dtype, (f"{block}/conv2",))
+                if level < L - 1:
+                    skip, pre = self._int8(f"{block}/conv2", q, dtype, (f"up_{L - 2 - level}/conv1", f"down_{level}/conv1"))
+                    skips.append(skip)
+                    q = max_pool_int8(pre, cfg.maxpool_size)
+                else:
+                    h = to_upconv(f"{block}/conv2", q, 0)
 
             for j in range(L - 1):
                 name, skip = f"up_{j}", skips[L - 2 - j]
-                if f"{name}/upconv" in self.sites:
-                    k = self._up(name).stride
-                    y = conv2d_int8(
-                        _quant_act(h, self.act_scale(f"{name}/upconv")), self.w8(f"{name}/upconv"),
-                        pad=0, scale=self._escale(f"{name}/upconv"),
-                        epilogue=Epilogue(bias=self.get_buffer(_buffer_name("bias", name)),
-                                          out_dtype=dtype, shuffle=k),
+                if up8:
+                    (yq,) = conv2d_int8(
+                        h, self.w8(f"{name}/upconv"), pad=0, scale=self._escale(f"{name}/upconv"),
+                        epilogue=Epilogue(bias=self.get_buffer(_buffer_name("bias", name)), out_dtype=dtype,
+                                          shuffle=self._up(name).stride,
+                                          q_scales=(self.act_scale(f"{name}/conv1"),), store_float=False),
                     )
                 else:
                     y = F.conv_transpose2d(nchw(h).to(dtype), ws[name], stride=self._up(name).stride)
-                    y = nhwc(y + ws[f"{name}_b"])
-                dy, dx = skip.shape[1] - y.shape[1], skip.shape[2] - y.shape[2]
-                yq = F.pad(_quant_act(y, self.act_scale(f"{name}/conv1")),
-                           [0, 0, dx // 2, dx - dx // 2, dy // 2, dy - dy // 2])
-                h = self._int8(f"{name}/conv1", torch.cat([skip, yq], dim=-1), dtype)
-                h = self._int8(f"{name}/conv2", _quant_act(h, self.act_scale(f"{name}/conv2")), dtype)
+                    yq = _quant_act(nhwc(y + ws[f"{name}_b"]), self.act_scale(f"{name}/conv1"))
+                dy, dx = skip.shape[1] - yq.shape[1], skip.shape[2] - yq.shape[2]
+                (q,) = self._int8(f"{name}/conv1", skip, dtype, (f"{name}/conv2",), qx2=yq, offset=(dy // 2, dx // 2))
+                h = self._int8(f"{name}/conv2", q, dtype) if j == L - 2 else to_upconv(f"{name}/conv2", q, j + 1)
 
             out = F.conv2d(nchw(h), ws["outc"]) + ws["outc_b"]
             return out.float().contiguous()
+
+
+def max_pool_int8(q: torch.Tensor, p: int) -> torch.Tensor:
+    """Floor-mode p x p max-pool with stride p of an int8 NHWC tensor: equal
+    to quantizing the float max-pool, since quantization is monotone."""
+    n, h, w, c = q.shape
+    ho, wo = h // p, w // p
+    return q[:, : ho * p, : wo * p].reshape(n, ho, p, wo, p, c).amax(dim=(2, 4))
 
 
 def unet_apply_int8(q: QuantizedUNet, x: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:

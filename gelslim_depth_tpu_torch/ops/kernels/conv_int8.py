@@ -1,4 +1,5 @@
-"""int8 x int8 -> int32 convolution with a float32 dequant epilogue, NHWC.
+"""int8 x int8 -> int32 convolution with a float32 dequant epilogue, NHWC,
+that can also requantize its output for the next int8 conv.
 
 ``conv2d_int8`` launches the hand-written CUDA kernel ``csrc/conv2d_int8.cu``
 for tensors on a CUDA device (the source's header says what it replaces,
@@ -10,30 +11,39 @@ version: on CUDA it launches or raises.
 The plain twin runs the convolution in float64, where every int8 x int8 sum
 of the U-Net is exact (|acc| <= 3*3*1024*127^2 ~ 1.5e8, far below 2^53; float32
 would not be, past 2^24), rounds it back to int32, then applies the epilogue
-as separate float32 ops in the kernel's order. The kernel rounds each
-multiply and add on its own too, so the two agree bit for bit up to the
-activation, and exactly for relu.
+as separate float32 ops in the kernel's order, casts to the compute dtype
+and quantizes that with ``models/quantize.py::_quant_act``. The kernel
+rounds each multiply and add on its own and divides by the scale in IEEE
+float32 too, so the two agree bit for bit up to the activation, and exactly
+for relu.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 ACTIVATIONS = ("none", "relu", "tanh", "mish")  # the kernel's act codes, in order
+PATHS = ("bytes", "wgmma")  # the kernel's mainloops, by the code it reports
 
 
 class Epilogue(NamedTuple):
     """What follows ``float(acc) * scale[o]``, in this order: ``+ bias[o]``,
     the folded eval BatchNorm ``* bn_mul[o] + bn_add[o]``, the activation,
-    the store in ``out_dtype``. ``shuffle = s > 1`` stores a 1x1 conv of
-    ``s*s*C`` columns depth-to-space: column ``(di*s + dj)*C + o`` of pixel
-    ``(n, i, j)`` goes to ``out[n, s*i + di, s*j + dj, o]`` (the row-split
-    transposed conv whose kernel equals its stride)."""
+    the rounding to ``out_dtype`` (the compute dtype). ``shuffle = s > 1``
+    stores a 1x1 conv of ``s*s*C`` columns depth-to-space: column
+    ``(di*s + dj)*C + o`` of pixel ``(n, i, j)`` goes to
+    ``out[n, s*i + di, s*j + dj, o]`` (the row-split transposed conv whose
+    kernel equals its stride).
+
+    ``q_scales`` asks for up to two int8 outputs, each the rounded value
+    quantized at its own scale, ``clamp(round(v / s), -127, 127)`` (IEEE
+    division, half to even), as its consumer's ``_quant_act`` would;
+    ``store_float`` keeps the ``out_dtype`` output beside them."""
 
     bias: Optional[torch.Tensor] = None    # float32 (Cout,)
     bn_mul: Optional[torch.Tensor] = None  # float32 (Cout,)
@@ -41,13 +51,15 @@ class Epilogue(NamedTuple):
     act: str = "none"
     out_dtype: torch.dtype = torch.float32
     shuffle: int = 1
+    q_scales: Tuple[torch.Tensor, ...] = ()  # float32, one element each
+    store_float: bool = True
 
 
 def bind(lib: ctypes.CDLL):
     """The C entry of a built csrc/conv2d_int8.cu, typed."""
     fn = lib.conv2d_int8
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p]
+    fn.argtypes = [p] * 12 + [i] * 17 + [ctypes.POINTER(i), p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -63,21 +75,30 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def launch(fn, qx, w, out, *, pad: int, scale, epilogue: Epilogue) -> int:
-    """Launches ``fn`` (a bound C entry) on checked, contiguous CUDA tensors;
-    returns its CUDA error code."""
+def launch(fn, qx, w, out, qouts, *, pad: int, scale, epilogue: Epilogue, qx2=None, offset=(0, 0)):
+    """Launches ``fn`` (a bound C entry) on checked, contiguous CUDA tensors:
+    ``out`` the float output or None, ``qouts`` the int8 outputs. Returns
+    (CUDA error code, the code of the mainloop it took)."""
     n, h, wd, cin = qx.shape
+    _, h2, w2, cin2 = qx2.shape if qx2 is not None else (n, 0, 0, 0)
     cout, kh, kw, _ = w.shape
+    qs = list(epilogue.q_scales) + [None] * (2 - len(epilogue.q_scales))
+    qo = list(qouts) + [None] * (2 - len(qouts))
+    path = ctypes.c_int(-1)
     with torch.cuda.device(qx.device):
-        return fn(
-            qx.data_ptr(), w.data_ptr(), out.data_ptr(), _ptr(scale), _ptr(epilogue.bias),
-            _ptr(epilogue.bn_mul), _ptr(epilogue.bn_add), n, h, wd, cin, cout, kh, kw, pad,
+        err = fn(
+            qx.data_ptr(), _ptr(qx2), w.data_ptr(), _ptr(out), _ptr(qo[0]), _ptr(qo[1]),
+            _ptr(scale), _ptr(epilogue.bias), _ptr(epilogue.bn_mul), _ptr(epilogue.bn_add),
+            _ptr(qs[0]), _ptr(qs[1]),
+            n, h, wd, cin, h2, w2, cin2, offset[0], offset[1], cout, kh, kw, pad,
             ACTIVATIONS.index(epilogue.act), int(epilogue.out_dtype == torch.bfloat16),
-            max(1, epilogue.shuffle), torch.cuda.current_stream(qx.device).cuda_stream,
+            max(1, epilogue.shuffle), len(epilogue.q_scales),
+            ctypes.byref(path), torch.cuda.current_stream(qx.device).cuda_stream,
         )
+    return err, path.value
 
 
-def _check(qx, w, pad, scale, ep: Epilogue):
+def _check(qx, w, pad, scale, ep: Epilogue, qx2, offset):
     if qx.ndim != 4 or w.ndim != 4 or qx.dtype != torch.int8 or w.dtype != torch.int8:
         raise TypeError(
             f"qx must be int8 (N, H, W, Cin) and w int8 (Cout, kh, kw, Cin), got "
@@ -85,6 +106,14 @@ def _check(qx, w, pad, scale, ep: Epilogue):
         )
     n, h, wd, cin = qx.shape
     cout, kh, kw, wcin = w.shape
+    if qx2 is not None:
+        if qx2.ndim != 4 or qx2.dtype != torch.int8 or qx2.shape[0] != n or qx2.device != qx.device:
+            raise ValueError(f"qx2 must be int8 ({n}, H2, W2, C2) on {qx.device}, got {qx2.dtype} {tuple(qx2.shape)}")
+        oy, ox = offset
+        _, h2, w2, cin2 = qx2.shape
+        if oy < 0 or ox < 0 or oy + h2 > h or ox + w2 > wd:
+            raise ValueError(f"qx2 {h2}x{w2} at offset {offset} does not lie inside qx's {h}x{wd}")
+        cin += cin2
     if wcin != cin:
         raise ValueError(f"w has {wcin} input channels, qx {cin}")
     ho, wo = h + 2 * pad - kh + 1, wd + 2 * pad - kw + 1
@@ -99,6 +128,12 @@ def _check(qx, w, pad, scale, ep: Epilogue):
     for name, v in (("scale", scale), ("bias", ep.bias), ("bn_mul", ep.bn_mul), ("bn_add", ep.bn_add)):
         if v is not None and (v.dtype != torch.float32 or tuple(v.shape) != (cout,) or v.device != qx.device):
             raise ValueError(f"{name} must be float32 ({cout},) on {qx.device}")
+    if len(ep.q_scales) > 2 or not (ep.q_scales or ep.store_float):
+        raise ValueError(f"an epilogue stores 1 or 2 int8 outputs and/or the float one, got "
+                         f"{len(ep.q_scales)} and store_float={ep.store_float}")
+    for s in ep.q_scales:
+        if s.dtype != torch.float32 or s.numel() != 1 or s.device != qx.device:
+            raise ValueError(f"q_scales must be float32 one-element tensors on {qx.device}")
     if w.device != qx.device:
         raise ValueError("qx and w must be on one device")
     s = ep.shuffle
@@ -110,41 +145,53 @@ def _check(qx, w, pad, scale, ep: Epilogue):
 
 
 def conv2d_int8(
-    qx: torch.Tensor,  # int8 (N, H, W, Cin)
-    w: torch.Tensor,   # int8 (Cout, kh, kw, Cin)
+    qx: torch.Tensor,  # int8 (N, H, W, C1)
+    w: torch.Tensor,   # int8 (Cout, kh, kw, C1 + C2)
     *,
     pad: int,
     scale: torch.Tensor,  # float32 (Cout,): in_scale * w_scale
     epilogue: Epilogue = Epilogue(),
-) -> torch.Tensor:
+    qx2: Optional[torch.Tensor] = None,  # int8 (N, H2, W2, C2)
+    offset: Tuple[int, int] = (0, 0),
+):
     """Stride-1 conv with zero padding ``pad`` on each side, int32
-    accumulation, and the dequant epilogue; returns NHWC in
-    ``epilogue.out_dtype``.
+    accumulation, and the epilogue. With ``qx2`` the conv reads the channel
+    concat ``[qx, qx2 placed at offset (oy, ox) on qx's H x W, zero
+    elsewhere]`` in place, with no copy of it.
 
-    On CUDA the output is allocated with ``torch.empty`` and the kernel is
+    Returns the NHWC output in ``epilogue.out_dtype`` when the epilogue asks
+    for no int8 output; else a tuple of the int8 outputs in ``q_scales``
+    order, followed by the float output where ``store_float``.
+
+    On CUDA the outputs are allocated with ``torch.empty`` and the kernel is
     launched on the current stream without synchronizing; each launch adds
-    one to ``conv2d_int8.launches`` (an empty output launches nothing). CPU
-    tensors go through ``conv2d_int8_reference`` and launch nothing."""
-    out_shape = _check(qx, w, pad, scale, epilogue)
+    one to ``conv2d_int8.launches`` and to its mainloop's count in
+    ``conv2d_int8.launches_by_path`` (an empty output launches nothing).
+    CPU tensors go through ``conv2d_int8_reference`` and launch nothing."""
+    out_shape = _check(qx, w, pad, scale, epilogue, qx2, offset)
     if qx.device.type == "cpu":
-        return conv2d_int8_reference(qx, w, pad=pad, scale=scale, epilogue=epilogue)
+        return conv2d_int8_reference(qx, w, pad=pad, scale=scale, epilogue=epilogue, qx2=qx2, offset=offset)
     if qx.device.type != "cuda":
         raise ValueError(f"no kernel for device {qx.device}")
-    vectors = (scale, epilogue.bias, epilogue.bn_mul, epilogue.bn_add)
-    if not (qx.is_contiguous() and w.is_contiguous() and all(v is None or v.is_contiguous() for v in vectors)):
+    tensors = (qx, qx2, w, scale, epilogue.bias, epilogue.bn_mul, epilogue.bn_add, *epilogue.q_scales)
+    if not all(t is None or t.is_contiguous() for t in tensors):
         raise ValueError("conv2d_int8 takes contiguous tensors")
 
-    out = torch.empty(out_shape, dtype=epilogue.out_dtype, device=qx.device)
-    if out.numel() == 0:
-        return out
-    err = launch(_kernel_fn(), qx, w, out, pad=pad, scale=scale, epilogue=epilogue)
-    if err != 0:
-        raise RuntimeError(f"conv2d_int8 kernel launch failed: CUDA error {err}")
-    conv2d_int8.launches += 1
-    return out
+    qouts = [torch.empty(out_shape, dtype=torch.int8, device=qx.device) for _ in epilogue.q_scales]
+    out = torch.empty(out_shape, dtype=epilogue.out_dtype, device=qx.device) if epilogue.store_float else None
+    outs = (*qouts, out) if out is not None else tuple(qouts)
+    if outs[0].numel() != 0:
+        err, path = launch(_kernel_fn(), qx, w, out, qouts, pad=pad, scale=scale, epilogue=epilogue,
+                           qx2=qx2, offset=offset)
+        if err != 0:
+            raise RuntimeError(f"conv2d_int8 kernel launch failed: CUDA error {err}")
+        conv2d_int8.launches += 1
+        conv2d_int8.launches_by_path[PATHS[path]] += 1
+    return outs if epilogue.q_scales else out
 
 
 conv2d_int8.launches = 0
+conv2d_int8.launches_by_path = dict.fromkeys(PATHS, 0)
 
 
 def conv2d_int8_accumulate(qx: torch.Tensor, w: torch.Tensor, pad: int) -> torch.Tensor:
@@ -153,11 +200,22 @@ def conv2d_int8_accumulate(qx: torch.Tensor, w: torch.Tensor, pad: int) -> torch
     return acc.round().to(torch.int32).permute(0, 2, 3, 1).contiguous()
 
 
-def conv2d_int8_reference(qx, w, *, pad, scale, epilogue: Epilogue = Epilogue()):
-    """Plain PyTorch composition of the same function (the kernel's twin)."""
+def place(qx2: torch.Tensor, hw: Tuple[int, int], offset: Tuple[int, int]) -> torch.Tensor:
+    """qx2 (N, H2, W2, C) zero-padded onto an H x W canvas at offset (oy, ox)."""
+    (h, wd), (oy, ox) = hw, offset
+    return F.pad(qx2, [0, 0, ox, wd - qx2.shape[2] - ox, oy, h - qx2.shape[1] - oy])
+
+
+def conv2d_int8_reference(qx, w, *, pad, scale, epilogue: Epilogue = Epilogue(), qx2=None, offset=(0, 0)):
+    """Plain PyTorch composition of the same function (the kernel's twin):
+    pad + concat, the conv, the epilogue, then each int8 output quantized
+    from the rounded value by ``_quant_act``."""
+    from gelslim_depth_tpu_torch.models.quantize import _quant_act
     from gelslim_depth_tpu_torch.models.unet import Activation
 
-    _check(qx, w, pad, scale, epilogue)
+    _check(qx, w, pad, scale, epilogue, qx2, offset)
+    if qx2 is not None:
+        qx = torch.cat([qx, place(qx2, qx.shape[1:3], offset)], dim=-1)
     y = conv2d_int8_accumulate(qx, w, pad).float() * scale
     if epilogue.bias is not None:
         y = y + epilogue.bias
@@ -171,4 +229,8 @@ def conv2d_int8_reference(qx, w, *, pad, scale, epilogue: Epilogue = Epilogue())
         n, h, wd, cols = y.shape
         c = cols // (s * s)
         y = y.reshape(n, h, wd, s, s, c).permute(0, 1, 3, 2, 4, 5).reshape(n, s * h, s * wd, c)
-    return y.contiguous()
+    y = y.contiguous()
+    if not epilogue.q_scales:
+        return y
+    qouts = tuple(_quant_act(y, q) for q in epilogue.q_scales)
+    return (*qouts, y) if epilogue.store_float else qouts

@@ -26,8 +26,9 @@ from gelslim_depth_tpu.train.checkpoint import load_quantized as jax_load_quanti
 from gelslim_depth_tpu_torch.config import GelslimConfig
 from gelslim_depth_tpu_torch.inference import Predictor, QuantizedPredictor, fused_predict_dual
 from gelslim_depth_tpu_torch.models import params_to_jax
-from gelslim_depth_tpu_torch.models.quantize import hwio_from_ohwi, rowsplit_to_jax
-from gelslim_depth_tpu_torch.ops.kernels.conv_int8 import Epilogue, conv2d_int8, conv2d_int8_reference
+from gelslim_depth_tpu_torch.models import UNetConfig
+from gelslim_depth_tpu_torch.models.quantize import hwio_from_ohwi, rowsplit_to_jax, serving_launches
+from gelslim_depth_tpu_torch.ops.kernels.conv_int8 import PATHS, Epilogue, conv2d_int8, conv2d_int8_reference
 from gelslim_depth_tpu_torch.train.checkpoint import load_checkpoint, load_quantized, save_weights
 
 # by path: where an installed package owns the name `tests` (as on the card's
@@ -258,57 +259,118 @@ def test_recalibrate_in_place(bundle):
 
 # -- on the card only --------------------------------------------------------
 
-# (n, h, w, cin, cout, k, pad, act, out dtype, shuffle): flagship site shapes
-# at N=1, one at N=8, ragged Cin, k=5 with pad 1, the row-split upconv mode
+# (n, h, w, cin, cout, k, pad, act, out dtype, shuffle, int8 outputs, store
+# the float one, second source (h2, w2, cin2, oy, ox) or None): flagship site
+# shapes at N=1, one at N=8, M and N tails, the concat read in place at
+# offsets, ragged Cin, k=5 with pad 1, the row-split upconv mode
 CUDA_CASES = [
-    (1, 160, 213, 64, 64, 3, 1, "relu", torch.bfloat16, 1),     # inc/conv2
-    (1, 80, 106, 64, 128, 3, 1, "relu", torch.bfloat16, 1),     # down_0/conv1
-    (1, 10, 13, 1024, 1024, 3, 1, "relu", torch.bfloat16, 1),   # down_3/conv2
-    (1, 20, 26, 1024, 512, 3, 1, "relu", torch.bfloat16, 1),    # up_0/conv1
-    (1, 160, 213, 128, 64, 3, 1, "relu", torch.bfloat16, 1),    # up_3/conv1
-    (8, 40, 53, 256, 256, 3, 1, "relu", torch.float32, 1),      # down_1/conv2 at N=8
-    (2, 17, 23, 4, 8, 3, 1, "relu", torch.float32, 1),
-    (2, 17, 23, 8, 16, 3, 1, "relu", torch.float32, 1),
-    (2, 17, 23, 24, 40, 3, 1, "relu", torch.bfloat16, 1),
-    (2, 17, 23, 16, 24, 5, 1, "relu", torch.float32, 1),
-    (2, 17, 23, 32, 70, 3, 1, "tanh", torch.float32, 1),
-    (2, 17, 23, 32, 64, 3, 1, "mish", torch.bfloat16, 1),
-    (1, 10, 13, 1024, 2048, 1, 0, "none", torch.bfloat16, 2),   # up_0/upconv, row-split
-    (2, 9, 11, 24, 24, 1, 0, "none", torch.float32, 2),
+    (1, 160, 213, 64, 64, 3, 1, "relu", torch.bfloat16, 1, 2, False, None),     # inc/conv2
+    (1, 80, 106, 64, 128, 3, 1, "relu", torch.bfloat16, 1, 1, False, None),     # down_0/conv1
+    (1, 10, 13, 1024, 1024, 3, 1, "relu", torch.bfloat16, 1, 0, True, None),    # down_3/conv2
+    (1, 20, 26, 512, 512, 3, 1, "relu", torch.bfloat16, 1, 1, False, (20, 26, 512, 0, 0)),  # up_0/conv1
+    (1, 160, 213, 64, 64, 3, 1, "relu", torch.bfloat16, 1, 1, False, (160, 212, 64, 0, 0)),  # up_3/conv1
+    (1, 160, 213, 128, 64, 3, 1, "relu", torch.bfloat16, 1, 0, True, None),
+    (8, 40, 53, 256, 256, 3, 1, "relu", torch.float32, 1, 2, True, None),      # down_1/conv2 at N=8
+    (3, 7, 9, 64, 96, 3, 1, "relu", torch.float32, 1, 1, True, None),          # M and N tails
+    (2, 17, 23, 64, 200, 3, 1, "relu", torch.bfloat16, 1, 2, False, (16, 21, 64, 1, 1)),
+    (2, 17, 23, 128, 72, 3, 1, "relu", torch.float32, 1, 1, True, (15, 23, 64, 1, 0)),
+    (2, 17, 23, 64, 64, 3, 1, "relu", torch.bfloat16, 1, 1, False, (17, 22, 64, 0, 1)),
+    (2, 17, 23, 4, 8, 3, 1, "relu", torch.float32, 1, 0, True, None),
+    (2, 17, 23, 8, 16, 3, 1, "relu", torch.float32, 1, 2, True, None),
+    (2, 17, 23, 24, 40, 3, 1, "relu", torch.bfloat16, 1, 1, False, (17, 22, 8, 0, 1)),
+    (2, 17, 23, 16, 24, 5, 1, "relu", torch.float32, 1, 1, True, None),
+    (2, 17, 23, 32, 70, 3, 1, "tanh", torch.float32, 1, 0, True, None),
+    (2, 17, 23, 64, 64, 3, 1, "tanh", torch.bfloat16, 1, 1, True, None),
+    (2, 17, 23, 32, 64, 3, 1, "mish", torch.bfloat16, 1, 0, True, None),
+    (2, 17, 23, 64, 64, 3, 1, "mish", torch.float32, 1, 2, True, None),
+    (1, 10, 13, 1024, 2048, 1, 0, "none", torch.bfloat16, 2, 1, False, None),   # up_0/upconv, row-split
+    (2, 80, 106, 128, 256, 1, 0, "none", torch.bfloat16, 2, 1, True, None),     # up_3/upconv
+    (2, 9, 11, 24, 24, 1, 0, "none", torch.float32, 2, 1, True, None),
 ]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,h,w,cin,cout,k,pad,act,dtype,shuffle", CUDA_CASES)
-def test_cuda_conv2d_int8_matches_twin(n, h, w, cin, cout, k, pad, act, dtype, shuffle):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    g = torch.Generator(device="cuda").manual_seed(cin + cout + k)
+def _card_inputs(g, n, h, w, cin, cout, k, x2):
+    def ints(shape):
+        return torch.randint(-127, 128, shape, generator=g, device="cuda", dtype=torch.int8)
 
+    qx = ints((n, h, w, cin))
+    qx2, offset = (ints((n, *x2[:3])), x2[3:]) if x2 else (None, (0, 0))
+    wt = ints((cout, k, k, cin + (x2[2] if x2 else 0)))
+    return qx, wt, dict(qx2=qx2, offset=offset)
+
+
+def _card_epilogue(g, cout, act, dtype, shuffle, n_q, store_float):
     def vec(lo, hi):
         return torch.rand(cout, generator=g, device="cuda") * (hi - lo) + lo
 
-    qx = torch.randint(-127, 128, (n, h, w, cin), generator=g, device="cuda", dtype=torch.int8)
-    wt = torch.randint(-127, 128, (cout, k, k, cin), generator=g, device="cuda", dtype=torch.int8)
-    scale = vec(1e-5, 1e-4)
-    ep = (Epilogue(bias=vec(-1, 1), act=act, out_dtype=dtype, shuffle=shuffle) if shuffle > 1 else
-          Epilogue(bn_mul=vec(0.5, 1.5), bn_add=vec(-0.5, 0.5), act=act, out_dtype=dtype))
-    before = conv2d_int8.launches
-    got = conv2d_int8(qx, wt, pad=pad, scale=scale, epilogue=ep)
+    q = dict(q_scales=tuple(torch.full((1,), v, device="cuda") for v in (0.05, 0.11)[:n_q]), store_float=store_float)
+    if shuffle > 1:
+        return Epilogue(bias=vec(-1, 1), act=act, out_dtype=dtype, shuffle=shuffle, **q)
+    return Epilogue(bn_mul=vec(0.5, 1.5), bn_add=vec(-0.5, 0.5), act=act, out_dtype=dtype, **q)
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _fast_path(cin, x2):
+    """The shape route: every Cin (and second-source C) a multiple of 64."""
+    return cin % 64 == 0 and (x2 is None or x2[2] % 64 == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout,k,pad,act,dtype,shuffle,n_q,store_float,x2", CUDA_CASES)
+def test_cuda_conv2d_int8_matches_twin(n, h, w, cin, cout, k, pad, act, dtype, shuffle, n_q, store_float, x2):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(cin + cout + k)
+    qx, wt, src = _card_inputs(g, n, h, w, cin, cout, k, x2)
+    scale = torch.rand(cout, generator=g, device="cuda") * 9e-5 + 1e-5
+    ep = _card_epilogue(g, cout, act, dtype, shuffle, n_q, store_float)
+    before, by_path = conv2d_int8.launches, dict(conv2d_int8.launches_by_path)
+    got = _as_tuple(conv2d_int8(qx, wt, pad=pad, scale=scale, epilogue=ep, **src))
     assert conv2d_int8.launches == before + 1
-    want = conv2d_int8_reference(qx, wt, pad=pad, scale=scale, epilogue=ep)
+    path = PATHS[-1] if _fast_path(cin, x2) else "bytes"
+    assert conv2d_int8.launches_by_path[path] == by_path[path] + 1
+    want = _as_tuple(conv2d_int8_reference(qx, wt, pad=pad, scale=scale, epilogue=ep, **src))
     ones = torch.ones(cout, device="cuda")
-    acc = conv2d_int8(qx, wt, pad=pad, scale=ones, epilogue=Epilogue(shuffle=shuffle))
-    acc_want = conv2d_int8_reference(qx, wt, pad=pad, scale=ones, epilogue=Epilogue(shuffle=shuffle))
+    acc = conv2d_int8(qx, wt, pad=pad, scale=ones, epilogue=Epilogue(shuffle=shuffle), **src)
+    acc_want = conv2d_int8_reference(qx, wt, pad=pad, scale=ones, epilogue=Epilogue(shuffle=shuffle), **src)
     torch.cuda.synchronize()
-    assert got.shape == want.shape and got.dtype == dtype
+    assert [(a.shape, a.dtype) for a in got] == [(b.shape, b.dtype) for b in want]
+    assert len(got) == n_q + store_float and got[-1].dtype == (dtype if store_float else torch.int8)
     torch.testing.assert_close(acc, acc_want, rtol=0, atol=0)  # the int32 sums (< 2^24 here)
-    if act in ("relu", "none"):
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
-    else:
-        # libm's tanh/exp/log1p against PyTorch's: 1e-6, or one bf16 ulp
-        torch.testing.assert_close(got.float(), want.float(), atol=1e-6,
-                                   rtol=0 if dtype == torch.float32 else 2.0 ** -8)
+    for a, b in zip(got, want):
+        if act in ("relu", "none"):
+            assert torch.equal(a, b)
+        elif a.dtype == torch.int8:  # a float ulp may move one int8 step
+            assert (a.int() - b.int()).abs().max() <= 1
+        else:
+            # libm's tanh/exp/log1p against PyTorch's: 1e-6, or one bf16 ulp
+            torch.testing.assert_close(a.float(), b.float(), atol=1e-6,
+                                       rtol=0 if dtype == torch.float32 else 2.0 ** -8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_img", [1, 128])
+@pytest.mark.parametrize("i", range(17))
+def test_cuda_conv2d_int8_flagship_site(n_img, i):
+    """Each of the flagship's 17 quantized convs at 1 and 64 dual frames,
+    with its serving epilogue: bit for bit against the twin, on the fast
+    mainloop."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    launch = serving_launches(UNetConfig(), n_img, (160, 213))[i]
+    g = torch.Generator(device="cuda").manual_seed(i)
+    x2 = launch.x2_shape and (*launch.x2_shape[1:], *launch.offset)
+    qx, wt, src = _card_inputs(g, *launch.x_shape, launch.cout, launch.k, x2)
+    scale = torch.rand(launch.cout, generator=g, device="cuda") * 9e-5 + 1e-5
+    ep = _card_epilogue(g, launch.cout, "relu", torch.bfloat16, 1, launch.n_q, launch.store_float)
+    fast = conv2d_int8.launches_by_path[PATHS[-1]]
+    got = _as_tuple(conv2d_int8(qx, wt, pad=1, scale=scale, epilogue=ep, **src))
+    assert conv2d_int8.launches_by_path[PATHS[-1]] == fast + 1
+    want = _as_tuple(conv2d_int8_reference(qx, wt, pad=1, scale=scale, epilogue=ep, **src))
+    assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda
@@ -323,11 +385,14 @@ def test_cuda_conv2d_int8_past_2_31_elements():
     qx = torch.randint(-127, 128, (n, h, w, cin), generator=g, device="cuda", dtype=torch.int8)
     wt = torch.randint(-127, 128, (cout, 3, 3, cin), generator=g, device="cuda", dtype=torch.int8)
     scale = torch.rand(cout, generator=g, device="cuda") * 1e-4
-    ep = Epilogue(act="relu", out_dtype=torch.bfloat16)
-    got = conv2d_int8(qx, wt, pad=1, scale=scale, epilogue=ep)
+    ep = Epilogue(act="relu", out_dtype=torch.bfloat16, q_scales=(torch.full((1,), 0.05, device="cuda"),))
+    fast = conv2d_int8.launches_by_path[PATHS[-1]]
+    got_q, got = conv2d_int8(qx, wt, pad=1, scale=scale, epilogue=ep)
+    assert conv2d_int8.launches_by_path[PATHS[-1]] == fast + 1
     for sl in (slice(0, 1), slice(n - 2, n)):
-        want = conv2d_int8_reference(qx[sl], wt, pad=1, scale=scale, epilogue=ep)
+        want_q, want = conv2d_int8_reference(qx[sl], wt, pad=1, scale=scale, epilogue=ep)
         torch.testing.assert_close(got[sl], want, rtol=0, atol=0)
+        assert torch.equal(got_q[sl], want_q)
 
 
 @pytest.mark.cuda
@@ -340,4 +405,5 @@ def test_cuda_quantized_predictor_matches_cpu(bundle):
     before = conv2d_int8.launches
     got = on_card.predict_dual_frames(bundle["held"], bundle["base"], FRAME).cpu().numpy()
     assert conv2d_int8.launches == before + 9 + 2  # 9 quantized sites + 2 int8 upconvs
+    assert on_card.predict_dual_frames(bundle["held"], bundle["base"], FRAME).cpu().numpy().tobytes() == got.tobytes()
     assert _rmse(got, want) <= 0.05 * qp.delta_mm + 1e-6
