@@ -466,6 +466,7 @@ def drive_int8_path(pred16, frames64, base):
         ref = {n: pred16.predict_dual_frames(frames64[:n], base, FRAME) for n in sizes}
     fused_preprocess_dual.launches = 0
     conv2d_int8.launches = 0
+    conv2d_int8.launches_by_path = dict.fromkeys(conv_int8.PATHS, 0)
     qpred = pred16.quantize(frames64[:4], base)
     sites = len(quantize_module._quantized_sites(qpred.q.cfg))
     check(sites == 17, f"{sites} quantized sites on the flagship")
@@ -490,6 +491,10 @@ def drive_int8_path(pred16, frames64, base):
                 "conv2d_int8_by_path": dict(conv2d_int8.launches_by_path)}
     print(f"int8 main path launches: {launches}", flush=True)
     check(launches["conv2d_int8"] > 0, "the int8 path launched no conv2d_int8")
+    check(launches["conv2d_int8_by_path"] == {**dict.fromkeys(conv_int8.PATHS, 0),
+                                              CONV_FAST_PATH: launches["conv2d_int8"]},
+          f"the int8 main path's conv2d_int8 launches by mainloop: {launches['conv2d_int8_by_path']}, "
+          f"want all {launches['conv2d_int8']} on {CONV_FAST_PATH}")
 
     for n, out, base_out, tag in [(n, outs[n], ref[n], "int8") for n in sizes] + [(8, out_up, ref[8], "int8 upconvs")]:
         check(tuple(out.shape) == (n, 2, *FRAME), f"{tag} N={n}: shape {tuple(out.shape)}")

@@ -75,6 +75,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 // The depth of the wgmma path's TMA ring (at most: less where the shared
@@ -265,7 +267,7 @@ __device__ __forceinline__ QScale q_scale(const float* s) {
 // overflow and underflow (every activation scale is).
 __device__ __forceinline__ bool q_scale_ok(const QScale& q) { return q.s > 0x1p-60f && q.s < 0x1p60f; }
 
-// clamp(rint(v / s), -127, 127) as _quant_act computes it on the stored
+// clamp(rint(v / s), -127, 127) as conv_int8.py's quant_act computes it on the stored
 // value, as an int: the IEEE float32 quotient (torch divides by a
 // one-element tensor, not by a reciprocal), rint rounding half to even.
 // The dividend is first clamped to +-128 s, which changes no result and
@@ -946,16 +948,43 @@ cudaError_t im2col_map(EncodeIm2col encode, CUtensorMap* map, const void* x, int
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The SMs of the current device (the launches read it to size the grid and pick a tile).
-long long sm_count() {
-  int device, sms;
-  if (cudaGetDevice(&device) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
-    return 1;
-  return sms;
+// Device facts a launch needs, queried once for each device and kept here
+// (0: not queried yet); two threads that query at once store the same value.
+constexpr int kMaxDevices = 64;
+
+// The SMs of `device` (the launches read it to size the grid and pick a tile).
+cudaError_t sm_count(int device, int* sms) {
+  static std::atomic<int> known[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  *sms = known[device].load(std::memory_order_relaxed);
+  if (*sms > 0) return cudaSuccess;
+  const cudaError_t err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) known[device].store(*sms, std::memory_order_relaxed);
+  return err;
+}
+
+// How many blocks of conv2d_int8_wgmma<BN> an SM of `device` holds, after
+// the kernel's shared-memory attributes are set there.
+template <int BN>
+cudaError_t blocks_per_sm(int device, int* per_sm) {
+  using T = WgTile<BN>;
+  static std::atomic<int> known[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  *per_sm = known[device].load(std::memory_order_relaxed);
+  if (*per_sm > 0) return cudaSuccess;
+  const auto kernel = conv2d_int8_wgmma<BN>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+  // all of the SM's unified L1 as shared memory: room for kBlocks blocks
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, T::kThreads, T::kSmemBytes);
+  if (err == cudaSuccess && *per_sm < 1) err = cudaErrorInvalidConfiguration;
+  if (err == cudaSuccess) known[device].store(*per_sm, std::memory_order_relaxed);
+  return err;
 }
 
 template <int BN>
-cudaError_t launch_wgmma(Params p, int n, cudaStream_t s) {
+cudaError_t launch_wgmma(Params p, int n, int device, int sms, cudaStream_t s) {
   using T = WgTile<BN>;
   static EncodeTiled encode_tiled = nullptr;
   static EncodeIm2col encode_im2col = nullptr;
@@ -982,18 +1011,12 @@ cudaError_t launch_wgmma(Params p, int n, cudaStream_t s) {
   p.n_tiles = (p.cout + BN - 1) / BN;
   const long long tiles = (static_cast<long long>(p.m_total) + kBM - 1) / kBM * p.n_tiles;
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const auto kernel = conv2d_int8_wgmma<BN>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
-  // all of the SM's unified L1 as shared memory: room for kBlocks blocks
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
-  int per_sm = 0;
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, T::kThreads, T::kSmemBytes);
+  int per_sm;
+  err = blocks_per_sm<BN>(device, &per_sm);
   if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long slots = sm_count() * per_sm;  // persistent blocks, all resident at once
+  const long long slots = static_cast<long long>(sms) * per_sm;  // persistent blocks, all resident at once
   const long long blocks = tiles < slots ? tiles : slots;
-  kernel<<<static_cast<unsigned>(blocks), T::kThreads, T::kSmemBytes, s>>>(p, map_x, map_x2, map_w);
+  conv2d_int8_wgmma<BN><<<static_cast<unsigned>(blocks), T::kThreads, T::kSmemBytes, s>>>(p, map_x, map_x2, map_w);
   return cudaGetLastError();
 }
 
@@ -1060,21 +1083,21 @@ extern "C" int conv2d_int8(const void* x, const void* x2, const void* w, void* o
   const bool wgmma = aligned(x) && aligned(w) && p.cin1 % kBK == 0 && (!x2 || (aligned(x2) && p.cin2 % kBK == 0));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   *path = wgmma ? kWgmma : kBytes;
-  cudaError_t err;
-  if (!wgmma)
-    err = launch_bytes(p, s);
-  else {
-    // 256 columns where that still gives every SM a tile and the mainloop is
-    // long against the epilogue that the consumers then run themselves: 72
-    // K steps or more, or no int8 output to quantize
-    const long long m_tiles = (m_total + kBM - 1) / kBM;
-    const bool long_k = k_total >= 72 * kBK || n_q == 0;
-    if (cout <= 64)
-      err = launch_wgmma<64>(p, n, s);
-    else if (cout >= 256 && long_k && m_tiles * ((cout + 255) / 256) >= sm_count())
-      err = launch_wgmma<256>(p, n, s);
-    else
-      err = launch_wgmma<128>(p, n, s);
-  }
+  if (!wgmma) return static_cast<int>(launch_bytes(p, s));
+  int device, sms;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = sm_count(device, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // 256 columns where that still gives every SM a tile and the mainloop is
+  // long against the epilogue that the consumers then run themselves: 72
+  // K steps or more, or no int8 output to quantize
+  const long long m_tiles = (m_total + kBM - 1) / kBM;
+  const bool long_k = k_total >= 72 * kBK || n_q == 0;
+  if (cout <= 64)
+    err = launch_wgmma<64>(p, n, device, sms, s);
+  else if (cout >= 256 && long_k && m_tiles * ((cout + 255) / 256) >= sms)
+    err = launch_wgmma<256>(p, n, device, sms, s);
+  else
+    err = launch_wgmma<128>(p, n, device, sms, s);
   return static_cast<int>(err);
 }

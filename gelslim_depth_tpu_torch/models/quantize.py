@@ -40,7 +40,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gelslim_depth_tpu_torch.models.unet import DoubleConv, UNet, UNetConfig, _no_cudnn_tf32
-from gelslim_depth_tpu_torch.ops.kernels.conv_int8 import Epilogue, conv2d_int8
+from gelslim_depth_tpu_torch.ops.kernels.conv_int8 import Epilogue, conv2d_int8, quant_act
 
 
 def _quantized_sites(cfg: UNetConfig) -> List[Tuple[str, str]]:
@@ -51,22 +51,6 @@ def _quantized_sites(cfg: UNetConfig) -> List[Tuple[str, str]]:
     for j in range(cfg.num_levels - 1):
         sites += [(f"up_{j}", "conv1"), (f"up_{j}", "conv2")]
     return sites
-
-
-def quantized_site_shapes(
-    cfg: UNetConfig, n: int, hw: Tuple[int, int]
-) -> List[Tuple[str, Tuple[int, int, int, int], int, int]]:
-    """(site, NHWC input shape, Cout, kernel size) of every quantized conv,
-    in ``_quantized_sites`` order, for an ``(n, n_channels, *hw)`` input:
-    read off a forward of the float U-Net on the meta device."""
-    net, shapes = _probe_shapes(cfg, n, hw)
-    out = []
-    for block, conv in _quantized_sites(cfg):
-        site = f"{block}/{conv}"
-        w = _double_conv(net, block).double_conv[0 if conv == "conv1" else 3].weight
-        b, c, h, wd = shapes[site]
-        out.append((site, (b, h, wd, c), w.shape[0], w.shape[2]))
-    return out
 
 
 class SiteLaunch(NamedTuple):
@@ -89,21 +73,24 @@ class SiteLaunch(NamedTuple):
 def serving_launches(cfg: UNetConfig, n: int, hw: Tuple[int, int], int8_upconvs: bool = False) -> List[SiteLaunch]:
     """The launches of the quantized sites, in ``_quantized_sites`` order,
     for an ``(n, n_channels, *hw)`` input, as ``QuantizedUNet.forward``
-    makes them (with or without int8 upconvs)."""
+    makes them (with or without int8 upconvs): the shapes are read off a
+    forward of the float U-Net on the meta device."""
     L = cfg.num_levels
-    _, shapes = _probe_shapes(cfg, n, hw)
+    net, shapes = _probe_shapes(cfg, n, hw)
     out = []
-    for site, x_shape, cout, k in quantized_site_shapes(cfg, n, hw):
-        block, conv = site.split("/")
-        x2_shape, offset, n_q = None, (0, 0), 1
+    for block, conv in _quantized_sites(cfg):
+        site = f"{block}/{conv}"
+        weight = _double_conv(net, block).double_conv[0 if conv == "conv1" else 3].weight
+        cout, k = weight.shape[0], weight.shape[2]
+        b, c, h, wd = shapes[site]
+        x_shape, x2_shape, offset, n_q = (b, h, wd, c), None, (0, 0), 1
         if block.startswith("up_"):
             j = int(block[3:])
             if conv == "conv1":  # [skip, up]: each half of the channels
-                b, h, w, c = x_shape
                 hin, win = shapes[f"{block}/upconv"][2:]
                 h2, w2 = [(e - 1) * cfg.upconv_stride + cfg.kernel_size - 1 for e in (hin, win)]
-                x_shape, x2_shape = (b, h, w, c // 2), (b, h2, w2, c // 2)
-                offset = ((h - h2) // 2, (w - w2) // 2)
+                x_shape, x2_shape = (b, h, wd, c // 2), (b, h2, w2, c // 2)
+                offset = ((h - h2) // 2, (wd - w2) // 2)
             elif j == L - 2 or not int8_upconvs:
                 n_q = 0
         elif conv == "conv2":
@@ -175,14 +162,6 @@ def quantize_upconv_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
     m = pack_upconv_rowsplit(w)
     q = torch.clamp(torch.round(m / s_o.repeat(k * k).view(-1, 1, 1, 1)), -127, 127).to(torch.int8)
     return q, s_o.repeat(k)
-
-
-def _quant_act(x: torch.Tensor, in_scale: torch.Tensor) -> torch.Tensor:
-    """Static-scale symmetric int8 activation quantization:
-    clamp(round(x / s), -127, 127), in float32, rounding half to even. The
-    scale goes in as a 1-element tensor, not a 0-d one, so that a bfloat16 x
-    is divided in float32 (type promotion) with no separate cast pass."""
-    return (x / in_scale.reshape(1)).round_().clamp_(-127, 127).to(torch.int8)
 
 
 def _percentile(a: torch.Tensor, percentile: float) -> torch.Tensor:
@@ -380,7 +359,7 @@ class QuantizedUNet(nn.Module):
             inc = self.net.inc
             act = inc.double_conv[2]
             y = F.conv2d(x.to(dtype).contiguous(memory_format=torch.channels_last), ws["inc"], padding=1)
-            q = _quant_act(nhwc(act(y * inc.bn0_scale + inc.bn0_shift).to(dtype)), self.act_scale("inc/conv2"))
+            q = quant_act(nhwc(act(y * inc.bn0_scale + inc.bn0_shift).to(dtype)), self.act_scale("inc/conv2"))
 
             def to_upconv(site, q, j):  # the site's output as up_j's upconv reads it
                 if up8:
@@ -412,7 +391,7 @@ class QuantizedUNet(nn.Module):
                     )
                 else:
                     y = F.conv_transpose2d(nchw(h).to(dtype), ws[name], stride=self._up(name).stride)
-                    yq = _quant_act(nhwc(y + ws[f"{name}_b"]), self.act_scale(f"{name}/conv1"))
+                    yq = quant_act(nhwc(y + ws[f"{name}_b"]), self.act_scale(f"{name}/conv1"))
                 dy, dx = skip.shape[1] - yq.shape[1], skip.shape[2] - yq.shape[2]
                 (q,) = self._int8(f"{name}/conv1", skip, dtype, (f"{name}/conv2",), qx2=yq, offset=(dy // 2, dx // 2))
                 h = self._int8(f"{name}/conv2", q, dtype) if j == L - 2 else to_upconv(f"{name}/conv2", q, j + 1)

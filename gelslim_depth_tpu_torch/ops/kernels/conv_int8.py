@@ -12,7 +12,8 @@ The plain twin runs the convolution in float64, where every int8 x int8 sum
 of the U-Net is exact (|acc| <= 3*3*1024*127^2 ~ 1.5e8, far below 2^53; float32
 would not be, past 2^24), rounds it back to int32, then applies the epilogue
 as separate float32 ops in the kernel's order, casts to the compute dtype
-and quantizes that with ``models/quantize.py::_quant_act``. The kernel
+and quantizes that with ``quant_act``, the int8 graph's activation
+quantizer, which the kernel's epilogue implements. The kernel
 rounds each multiply and add on its own and divides by the scale in IEEE
 float32 too, so the two agree bit for bit up to the activation, and exactly
 for relu.
@@ -42,7 +43,7 @@ class Epilogue(NamedTuple):
 
     ``q_scales`` asks for up to two int8 outputs, each the rounded value
     quantized at its own scale, ``clamp(round(v / s), -127, 127)`` (IEEE
-    division, half to even), as its consumer's ``_quant_act`` would;
+    division, half to even), as ``quant_act`` does for its consumer;
     ``store_float`` keeps the ``out_dtype`` output beside them."""
 
     bias: Optional[torch.Tensor] = None    # float32 (Cout,)
@@ -206,11 +207,18 @@ def place(qx2: torch.Tensor, hw: Tuple[int, int], offset: Tuple[int, int]) -> to
     return F.pad(qx2, [0, 0, ox, wd - qx2.shape[2] - ox, oy, h - qx2.shape[1] - oy])
 
 
+def quant_act(x: torch.Tensor, in_scale: torch.Tensor) -> torch.Tensor:
+    """Static-scale symmetric int8 activation quantization:
+    clamp(round(x / s), -127, 127), in float32, rounding half to even. The
+    scale goes in as a 1-element tensor, not a 0-d one, so that a bfloat16 x
+    is divided in float32 (type promotion) with no separate cast pass."""
+    return (x / in_scale.reshape(1)).round_().clamp_(-127, 127).to(torch.int8)
+
+
 def conv2d_int8_reference(qx, w, *, pad, scale, epilogue: Epilogue = Epilogue(), qx2=None, offset=(0, 0)):
     """Plain PyTorch composition of the same function (the kernel's twin):
     pad + concat, the conv, the epilogue, then each int8 output quantized
-    from the rounded value by ``_quant_act``."""
-    from gelslim_depth_tpu_torch.models.quantize import _quant_act
+    from the rounded value by ``quant_act``."""
     from gelslim_depth_tpu_torch.models.unet import Activation
 
     _check(qx, w, pad, scale, epilogue, qx2, offset)
@@ -232,5 +240,5 @@ def conv2d_int8_reference(qx, w, *, pad, scale, epilogue: Epilogue = Epilogue(),
     y = y.contiguous()
     if not epilogue.q_scales:
         return y
-    qouts = tuple(_quant_act(y, q) for q in epilogue.q_scales)
+    qouts = tuple(quant_act(y, q) for q in epilogue.q_scales)
     return (*qouts, y) if epilogue.store_float else qouts

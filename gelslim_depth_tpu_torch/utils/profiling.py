@@ -40,15 +40,18 @@ def busy_us(events) -> float:
     return busy
 
 
-def device_ms(fn, calls: int = 20, attempts: int = 3) -> float:
+TRACE_ATTEMPTS = 3
+
+
+def device_ms(fn, calls: int = 20) -> float:
     """Device time of one call: the card's busy time over `calls`
     back-to-back calls, over `calls`. A trace now and then comes back with
     no device events (after many traces in one process, or with many kernel
-    libraries loaded); it is taken again, up to `attempts` times in all.
+    libraries loaded); it is taken again, up to TRACE_ATTEMPTS times in all.
     Raises when none holds a device op, so a missing measurement never
     reads as a time."""
-    for _ in range(attempts):
+    for _ in range(TRACE_ATTEMPTS):
         events = device_events(fn, calls, sync_each=False)
         if events:
             return busy_us(events) / calls / 1e3
-    raise RuntimeError(f"{attempts} profiler traces held no device events: device time not measured")
+    raise RuntimeError(f"{TRACE_ATTEMPTS} profiler traces held no device events: device time not measured")

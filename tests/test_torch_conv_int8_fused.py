@@ -5,7 +5,7 @@ on the CPU.
 
 Bar: ``torch.equal`` everywhere. The fused functions are the old
 composition by construction (conv, dequant, round to the compute dtype,
-then ``_quant_act``; pad + concat; quantize then max-pool, exact because
+then ``quant_act``; pad + concat; quantize then max-pool, exact because
 quantization is monotone), so nothing may move by a single bit.
 """
 
@@ -52,7 +52,7 @@ def test_int8_outputs_equal_quant_act_of_float(dtype, n_q, store_float):
     assert isinstance(got, tuple) and len(got) == n_q + store_float
     for q, s in zip(got, q_scales):
         assert q.dtype == torch.int8 and q.shape == want_y.shape
-        assert torch.equal(q, pq._quant_act(want_y, s))
+        assert torch.equal(q, pq.quant_act(want_y, s))
         assert q.min() >= -127 and 0 < q.abs().max() <= 127  # both ends of the range are reached
     if store_float:
         assert got[-1].dtype == dtype and torch.equal(got[-1], want_y)
@@ -92,7 +92,7 @@ def test_two_source_equals_pad_and_concat(offset, dtype):
     s = torch.tensor([0.02])
     (q,) = conv2d_int8(skip, wt, pad=1, scale=scale, epilogue=ep._replace(q_scales=(s,), store_float=False),
                        qx2=up, offset=offset)
-    assert torch.equal(q, pq._quant_act(want, s))
+    assert torch.equal(q, pq.quant_act(want, s))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -101,8 +101,8 @@ def test_max_pool_int8_equals_quantized_float_pool(dtype, shape, p):
     rng = np.random.RandomState(sum(shape) + p)
     h = torch.from_numpy(rng.uniform(-3, 3, shape).astype(np.float32)).to(dtype)
     s = torch.tensor(0.021)
-    want = pq._quant_act(F.max_pool2d(h.permute(0, 3, 1, 2), p).permute(0, 2, 3, 1).contiguous(), s)
-    got = pq.max_pool_int8(pq._quant_act(h, s), p)
+    want = pq.quant_act(F.max_pool2d(h.permute(0, 3, 1, 2), p).permute(0, 2, 3, 1).contiguous(), s)
+    got = pq.max_pool_int8(pq.quant_act(h, s), p)
     assert got.dtype == torch.int8 and torch.equal(got, want)
 
 
@@ -152,33 +152,33 @@ def _unfused_forward(q, x, dtype):
             act=cfg.activation, out_dtype=dtype))
 
     def block(name, h):
-        h = conv(f"{name}/conv1", pq._quant_act(h, q.act_scale(f"{name}/conv1")))
-        return conv(f"{name}/conv2", pq._quant_act(h, q.act_scale(f"{name}/conv2")))
+        h = conv(f"{name}/conv1", pq.quant_act(h, q.act_scale(f"{name}/conv1")))
+        return conv(f"{name}/conv2", pq.quant_act(h, q.act_scale(f"{name}/conv2")))
 
     with _no_cudnn_tf32() if dtype == torch.float32 else contextlib.nullcontext():
         inc = q.net.inc
         y = F.conv2d(x.to(dtype).contiguous(memory_format=torch.channels_last), ws["inc"], padding=1)
         h = nhwc(inc.double_conv[2](y * inc.bn0_scale + inc.bn0_shift).to(dtype))
-        h = conv("inc/conv2", pq._quant_act(h, q.act_scale("inc/conv2")))
+        h = conv("inc/conv2", pq.quant_act(h, q.act_scale("inc/conv2")))
         skips = []
         for i in range(L - 1):
-            skips.append(pq._quant_act(h, q.act_scale(f"up_{L - 2 - i}/conv1")))
+            skips.append(pq.quant_act(h, q.act_scale(f"up_{L - 2 - i}/conv1")))
             h = block(f"down_{i}", nhwc(F.max_pool2d(nchw(h), cfg.maxpool_size)))
         for j in range(L - 1):
             name, skip = f"up_{j}", skips[L - 2 - j]
             if f"{name}/upconv" in q.sites:
                 y = conv2d_int8_reference(
-                    pq._quant_act(h, q.act_scale(f"{name}/upconv")), q.w8(f"{name}/upconv"), pad=0,
+                    pq.quant_act(h, q.act_scale(f"{name}/upconv")), q.w8(f"{name}/upconv"), pad=0,
                     scale=q._escale(f"{name}/upconv"),
                     epilogue=Epilogue(bias=q.get_buffer(pq._buffer_name("bias", name)), out_dtype=dtype,
                                       shuffle=q._up(name).stride))
             else:
                 y = nhwc(F.conv_transpose2d(nchw(h).to(dtype), ws[name], stride=q._up(name).stride) + ws[f"{name}_b"])
             dy, dx = skip.shape[1] - y.shape[1], skip.shape[2] - y.shape[2]
-            yq = F.pad(pq._quant_act(y, q.act_scale(f"{name}/conv1")),
+            yq = F.pad(pq.quant_act(y, q.act_scale(f"{name}/conv1")),
                        [0, 0, dx // 2, dx - dx // 2, dy // 2, dy - dy // 2])
             h = conv(f"{name}/conv1", torch.cat([skip, yq], dim=-1))
-            h = conv(f"{name}/conv2", pq._quant_act(h, q.act_scale(f"{name}/conv2")))
+            h = conv(f"{name}/conv2", pq.quant_act(h, q.act_scale(f"{name}/conv2")))
         return (F.conv2d(nchw(h), ws["outc"]) + ws["outc_b"]).float().contiguous()
 
 

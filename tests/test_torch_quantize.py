@@ -93,27 +93,30 @@ def test_quantized_sites_match(models):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_quantized_site_shapes_match_forward(models, name):
-    """The meta-device shapes are those each site's conv sees in a real
-    CPU forward, and its weight's Cout and kernel size."""
+    """serving_launches' meta-device shapes are those each site's conv sees
+    in a real CPU forward (at up_j/conv1 the skip and the upconv output
+    together), and its weight's Cout and kernel size."""
     net = models[name]["net"]
     seen = {}
     net(torch.from_numpy(models[name]["x"]), probe=lambda site, h: seen.setdefault(site, tuple(h.shape)))
-    shapes = pq.quantized_site_shapes(net.cfg, 2, (24, 33))
-    assert [s[0] for s in shapes] == [f"{b}/{c}" for b, c in pq._quantized_sites(net.cfg)]
-    for site, (n, h, w, c), cout, k in shapes:
-        assert seen[site] == (n, c, h, w)
-        block, conv = site.split("/")
+    launches = pq.serving_launches(net.cfg, 2, (24, 33))
+    assert [s.site for s in launches] == [f"{b}/{c}" for b, c in pq._quantized_sites(net.cfg)]
+    for s in launches:
+        n, h, w, c = s.x_shape
+        assert seen[s.site] == (n, c + (s.x2_shape[3] if s.x2_shape else 0), h, w)
+        block, conv = s.site.split("/")
         weight = pq._double_conv(net, block).double_conv[0 if conv == "conv1" else 3].weight
-        assert (cout, k) == (weight.shape[0], weight.shape[2])
+        assert (s.cout, s.k) == (weight.shape[0], weight.shape[2])
 
 
 def test_quantized_site_shapes_flagship():
-    shapes = {s: (x, cout, k) for s, x, cout, k in pq.quantized_site_shapes(UNetConfig(), 128, (160, 213))}
+    shapes = {s.site: (s.x_shape, s.x2_shape, s.offset, s.cout, s.k)
+              for s in pq.serving_launches(UNetConfig(), 128, (160, 213))}
     assert len(shapes) == 17
-    assert shapes["inc/conv2"] == ((128, 160, 213, 64), 64, 3)
-    assert shapes["down_3/conv2"] == ((128, 10, 13, 1024), 1024, 3)
-    assert shapes["up_0/conv1"] == ((128, 20, 26, 1024), 512, 3)
-    assert shapes["up_3/conv1"] == ((128, 160, 213, 128), 64, 3)
+    assert shapes["inc/conv2"] == ((128, 160, 213, 64), None, (0, 0), 64, 3)
+    assert shapes["down_3/conv2"] == ((128, 10, 13, 1024), None, (0, 0), 1024, 3)
+    assert shapes["up_0/conv1"] == ((128, 20, 26, 512), (128, 20, 26, 512), (0, 0), 512, 3)
+    assert shapes["up_3/conv1"] == ((128, 160, 213, 64), (128, 160, 212, 64), (0, 0), 64, 3)
 
 
 @pytest.mark.parametrize("shape", [(3, 3, 8, 16), (5, 5, 4, 8), (3, 3, 24, 5), (1, 1, 32, 4)])
@@ -155,11 +158,11 @@ def test_quant_act_bit_identical_with_ties(dtype):
     for scale in (s, np.float32(0.0371)):
         xj = jnp.asarray(x).astype(getattr(jnp, dtype))
         xp = torch.from_numpy(x).to(getattr(torch, dtype))
-        got = pq._quant_act(xp, torch.tensor(scale))
+        got = pq.quant_act(xp, torch.tensor(scale))
         want = np.asarray(jq._quant_act(xj, scale))
         assert got.dtype == torch.int8
         np.testing.assert_array_equal(got.numpy(), want)
-    assert pq._quant_act(torch.tensor([0.5, 1.5, 2.5, -0.5, 300.0]), torch.tensor(1.0)).tolist() == [0, 2, 2, 0, 127]
+    assert pq.quant_act(torch.tensor([0.5, 1.5, 2.5, -0.5, 300.0]), torch.tensor(1.0)).tolist() == [0, 2, 2, 0, 127]
 
 
 @pytest.mark.parametrize("case,upconvs", UPCONV_CASES)
@@ -307,7 +310,7 @@ def test_conv_twin_matches_jax_rowsplit_upconv():
     q_pack, s_col = jq.quantize_upconv_weight(jnp.asarray(w_ref.transpose(2, 3, 1, 0)))
     want = np.asarray(jq._upconv_int8(jnp.asarray(h), in_scale, q_pack, s_col, jnp.asarray(bias)))
     qw, sc = pq.quantize_upconv_weight(torch.from_numpy(w_ref))
-    qx = pq._quant_act(torch.from_numpy(h), torch.tensor(in_scale))
+    qx = pq.quant_act(torch.from_numpy(h), torch.tensor(in_scale))
     got = conv2d_int8(
         qx, qw, pad=0, scale=(torch.tensor(in_scale) * sc).repeat(2),
         epilogue=Epilogue(bias=torch.from_numpy(bias).repeat(4), shuffle=2),
