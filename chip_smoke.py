@@ -7,11 +7,14 @@ Builds the port's hand-written CUDA kernels from the sources in the
 checkout (one nvcc each, all at once), holds each against its plain
 PyTorch twin on the card, drives the main paths and checks what comes out:
 flagship dual-frame serving through ``Predictor`` (seeded random weights),
-then int8 serving through ``Predictor.quantize`` -> ``QuantizedPredictor``.
-Then it times the kernels and the U-Nets by their device time in a
-torch.profiler trace, and whole calls by the host clock. Prints the card, a
-``{"kernels": [...]}`` line, an end-to-end line and, last,
-``{"ok": true, "device": {...}}``. Any failed check exits non-zero; with no
+then int8 serving through ``Predictor.quantize`` -> ``QuantizedPredictor``,
+then bakes a seeded synthetic training set from 320x427 frames. It times
+the kernels, the U-Nets and the train steps by their device time in a
+torch.profiler trace, and whole calls by the host clock. Then training:
+float32 train steps on the card against the same steps on the CPU, a
+bfloat16 loss that falls, and ``Trainer.fit`` on the synthetic set,
+served from its best checkpoint and resumed. Prints the card, a ``{"kernels": [...]}`` line, an end-to-end line,
+a training line and, last, ``{"ok": true, "device": {...}}``. Any failed check exits non-zero; with no
 CUDA device it exits non-zero before any result. Imports nothing of JAX or
 of the JAX package.
 """
@@ -25,14 +28,20 @@ import sys
 import time
 
 import contextlib
+import dataclasses
+import tempfile
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from gelslim_depth_tpu_torch import GelslimConfig, Predictor
+from gelslim_depth_tpu_torch import GelslimConfig, Predictor, Trainer, bake_dataset
+from gelslim_depth_tpu_torch.data.synthetic import make_synthetic_object
 from gelslim_depth_tpu_torch.inference import fused_predict_dual
-from gelslim_depth_tpu_torch.models import UNet
+from gelslim_depth_tpu_torch.models.unet import unet_state_shapes
 from gelslim_depth_tpu_torch.models import quantize as quantize_module
+from gelslim_depth_tpu_torch.models import unet as unet_module
+from gelslim_depth_tpu_torch.train import create_train_state, make_optimizer, make_train_step
 from gelslim_depth_tpu_torch.ops.kernels import (
     Epilogue,
     build,
@@ -54,14 +63,15 @@ CONV_FAST_PATH = conv_int8.PATHS[-1]  # the mainloop every flagship launch must 
 MULT = [1 / 255.0] * 3  # 0_255_to_0_1
 ADD = [0.0] * 3
 
-# data-sheet peaks: device memory bytes/s, float32 (non-tensor-core) FLOP/s
-# and dense int8 tensor-core OP/s
+# data-sheet peaks: device memory bytes/s, float32 (non-tensor-core) FLOP/s,
+# dense int8 tensor-core OP/s and dense bfloat16 tensor-core FLOP/s
 CARD_PEAKS = (
-    ("H100 PCIe", 2.0e12, 51e12, 1513e12),
-    ("H100 NVL", 3.9e12, 60e12, 1671e12),
-    ("H200", 4.8e12, 67e12, 1979e12),
-    ("H100", 3.35e12, 67e12, 1979e12),  # SXM
+    ("H100 PCIe", 2.0e12, 51e12, 1513e12, 756e12),
+    ("H100 NVL", 3.9e12, 60e12, 1671e12, 835e12),
+    ("H200", 4.8e12, 67e12, 1979e12, 989e12),
+    ("H100", 3.35e12, 67e12, 1979e12, 989e12),  # SXM
 )
+TRAIN_BATCH = 16  # GelslimConfig.batch_size, the reference's
 
 
 # substrings of device op names -> the layer they belong to, for the
@@ -74,6 +84,23 @@ DEVICE_OP_KEYS = {
     "aten ops (BN, activation, casts, bias, pad, cat, pool)": ("at::native",),
     "memcpy/memset": ("Memcpy", "Memset"),
 }
+# the same for a train step; the first key that matches names the layer.
+# cuDNN picks FFT and Winograd algorithms for some float32 convs; their
+# transforms and complex GEMMs fall under "other library kernels". A
+# transposed conv's forward runs as a data-gradient kernel and its data
+# gradient as a forward one, so the upconvs' share lands in the other
+# direction
+TRAIN_OP_KEYS = {
+    "optimizer + EMA (foreach)": ("multi_tensor_apply",),
+    "cuDNN conv backward, weights": ("wgrad", "Wgrad"),
+    "cuDNN conv backward, data": ("dgrad",),
+    "cuDNN conv forward": ("fprop", "implicit_convolve"),
+    "cudnn layout transposes": ("nchwToNhwc", "nhwcToNchw"),
+    "aten ops (BN, activation, casts, NaN-guard select, pool, pad, cat)": ("at::native",),
+    "memcpy/memset": ("Memcpy", "Memset"),
+}
+TRAIN_LIBRARY_OPS = "other library kernels (cuDNN FFT and Winograd convs, cuBLAS)"
+TRAIN_CONV_OPS = ("cuDNN conv backward, weights", "cuDNN conv backward, data", "cuDNN conv forward", TRAIN_LIBRARY_OPS)
 
 
 def fail(msg: str) -> None:
@@ -95,7 +122,7 @@ def card_line() -> str:
 
 
 def card_peaks(name: str):
-    """(bytes/s, float32 FLOP/s, int8 OP/s) of the card."""
+    """(bytes/s, float32 FLOP/s, int8 OP/s, bfloat16 FLOP/s) of the card."""
     for key, *peaks in CARD_PEAKS:
         if key in name:
             return peaks
@@ -127,11 +154,8 @@ def seeded_state_dict(cfg, seed: int):
     activations keep their scale through the depth), identity BatchNorm
     statistics, and a head scaled to a normalized-depth spread of ~0.3."""
     g = torch.Generator().manual_seed(seed)
-    with torch.device("meta"):
-        shapes = {k: v.shape for k, v in UNet(cfg).state_dict().items()
-                  if not k.endswith("num_batches_tracked")}
     sd = {}
-    for k, shape in shapes.items():
+    for k, shape in unet_state_shapes(cfg).items():
         if len(shape) == 4:
             fan_in = shape[1] * shape[2] * shape[3]
             std = (0.3 if k.startswith("outc.") else 2.0 ** 0.5) / fan_in ** 0.5
@@ -178,21 +202,23 @@ def rand(shape, g):
     return torch.rand(shape, generator=g, device="cuda") * 255.0
 
 
-def device_profile(fn, calls: int = 10):
+def device_profile(fn, calls: int = 10, op_keys=DEVICE_OP_KEYS, other=LIBRARY_OPS):
     """A torch.profiler trace of `calls` calls, each ending in a synchronize
     as a serving loop's does. Returns (device busy ms per call, device idle
     share, device ops per call, {category: share of device op time},
     {category: device ms per call}), or None when the trace holds no device
     events. The idle share is the part of the span from the first device
-    op's start to the last one's end in which no device op runs."""
+    op's start to the last one's end in which no device op runs. Device ops
+    fall into the first category of op_keys whose substrings their name
+    holds, else into `other`."""
     events = device_events(fn, calls, sync_each=True)
     if not events:
         return None
     busy = busy_us(events)
     span = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
-    per_category = dict.fromkeys((*DEVICE_OP_KEYS, LIBRARY_OPS), 0.0)
+    per_category = dict.fromkeys((*op_keys, other), 0.0)
     for e in events:
-        cat = next((c for c, keys in DEVICE_OP_KEYS.items() if any(k in e.name for k in keys)), LIBRARY_OPS)
+        cat = next((c for c, keys in op_keys.items() if any(k in e.name for k in keys)), other)
         per_category[cat] += e.time_range.elapsed_us()
     total = sum(per_category.values())
     shares = {c: v / total for c, v in per_category.items()}
@@ -536,7 +562,7 @@ def measure_conv_sites(peaks, g):
     twin there: kernel, plain twin, the bound of what the launch reads and
     writes, and torch._int_mm on the same GEMM with the input already
     im2col'd (the int8 tensor-core yardstick; the port never calls it)."""
-    bw, _, int8_peak = peaks
+    bw, _, int8_peak, _ = peaks
     out = {}
     for launch in flagship_launches(128):
         check(launch.k == 3, f"{launch.site}: the im2col yardstick assumes a 3x3 conv, got {launch.k}")
@@ -575,7 +601,7 @@ def measure(pred16, qpred, frames64, base, peaks):
     traces, and the int8 path's conv2d_int8 time per call against its bound.
     At N=1 the 3.3 MB of inputs stay in the 50 MB L2 from call to call, so
     the N=1 kernel times are warm."""
-    bw, f32_peak, int8_peak = peaks
+    bw, f32_peak, int8_peak, _ = peaks
     timings = {}
     for n in (1, 64):
         frames = frames64[:n]
@@ -629,6 +655,292 @@ def measure(pred16, qpred, frames64, base, peaks):
     return timings, e2e
 
 
+def unet_conv_flops(cfg, hw):
+    """Forward FLOPs of one image's convs (2 a multiply-add), from the
+    shapes: padding-1 convs, floor max-pools, the transposed convs, the
+    decoder's 3x3 DoubleConvs at the skips' sizes, the 1x1 head.
+    Returns (all convs, the first conv alone)."""
+    dims, k, m = cfg.layer_dimensions, cfg.kernel_size, cfg.maxpool_size
+
+    def conv(cin, cout, kk, h, w):
+        ho, wo = h + 3 - kk, w + 3 - kk
+        return 2 * kk * kk * cin * cout * ho * wo, ho, wo
+
+    first, h, w = conv(cfg.n_channels, dims[0], k, *hw)
+    f, h, w = conv(dims[0], dims[0], k, h, w)
+    total, sizes = first + f, [(h, w)]
+    for i in range(1, len(dims)):
+        f1, h, w = conv(dims[i - 1], dims[i], k, h // m, w // m)
+        f2, h, w = conv(dims[i], dims[i], k, h, w)
+        total += f1 + f2
+        sizes.append((h, w))
+    for j in range(len(dims) - 1):
+        cin, cout, ku = dims[-1 - j], dims[-2 - j], k - 1
+        total += 2 * ku * ku * cin * (cin // 2) * h * w  # every input pixel meets the whole kernel
+        f1, h, w = conv(cin, cout, 3, *sizes[-2 - j])
+        f2, h, w = conv(cout, cout, 3, h, w)
+        total += f1 + f2
+    return total + 2 * dims[0] * cfg.n_classes * h * w, first
+
+
+def training_sets():
+    """A seeded synthetic set baked on the card from 320x427 frames at the
+    flagship's normalization: 128 train, 16 val and 16 test finger samples."""
+    rng = np.random.RandomState(0)
+    bake = dict(use_difference_image=True, image_normalization_method="0_255_to_0_1",
+                depth_normalization_method="min_max_to_0_-1", norm_scale=0.9, downsample_factor=0.5)
+    train = bake_dataset(preloaded=[make_synthetic_object(rng, 8, FRAME) for _ in range(8)], **bake)
+    frozen = dict(depth_normalization_parameters=train.depth_normalization_parameters,
+                  image_normalization_parameters=train.image_normalization_parameters)
+    val, test = (bake_dataset(preloaded=[make_synthetic_object(rng, 8, FRAME)], **bake, **frozen) for _ in range(2))
+    check(tuple(train.tactile_image.shape) == (128, 3, *NET_IN) and train.tactile_image.is_cuda,
+          f"baked train set {tuple(train.tactile_image.shape)} on {train.tactile_image.device}")
+    return train, val, test
+
+
+def rel_l2(got, want):
+    return ((got.double() - want.double()).norm() / want.double().norm().clamp_min(1e-30)).item()
+
+
+@contextlib.contextmanager
+def _tf32_on():
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+@contextlib.contextmanager
+def tf32_forced():
+    """A deliberate fault for the parity controls: the port's float32 guard
+    (``models.unet._no_cudnn_tf32``, which ``full_precision`` enters in
+    the forward and a train step across its backward) turned into its
+    opposite, so that every cuDNN conv of the step may run in TF32."""
+    keep = unet_module._no_cudnn_tf32
+    unet_module._no_cudnn_tf32 = _tf32_on
+    try:
+        yield
+    finally:
+        unet_module._no_cudnn_tf32 = keep
+
+
+def check_train_step_parity(ucfg, train):
+    """One train step on the card against the same step on the CPU, from the
+    same seeded state, on 2 finger samples.
+
+    Flagship (ReLU), float32: loss rtol 1e-4, the new BN running statistics
+    rtol 1e-4 / atol 1e-6, the parameters after the step rtol 5e-3 / atol
+    2e-3. Its gradients cannot be held to each other per tensor: a ReLU
+    input or a max-pool pair within rounding of its kink flips between two
+    float32 implementations, and the gradient jumps there. So they are held
+    in float64 (card vs CPU, every tensor within a relative L2 error of
+    1e-3), and each side's float32 gradients to the card's float64 step,
+    the card's median error at most 2x the CPU's.
+
+    tanh, float32 (the same state; tanh has no kink): every gradient tensor
+    of the card within a relative L2 error of 1e-3 of the CPU's.
+
+    Controls: the same card steps with TF32 forced on (``tf32_forced``)
+    must fail both gradient bars. torch's default flags stay as they are
+    otherwise: a float32 step turns cuDNN TF32 off itself, across the
+    forward and the backward."""
+    opt = make_optimizer()
+    state = create_train_state(ucfg, opt, generator=torch.Generator().manual_seed(0))
+    x, y = train.tactile_image[:2], train.depth_image[:2]
+    mask = torch.ones(2, dtype=torch.bool)
+    tanh = dataclasses.replace(ucfg, activation="tanh")
+
+    def run(cfg, dev, dtype, tf32=False):
+        step = make_train_step(cfg, opt, compute_dtype=dtype, masked=True)
+        st = state.to(dev)
+        t0 = time.perf_counter()
+        with tf32_forced() if tf32 else contextlib.nullcontext():
+            loss, stats, grads = step.loss_and_grads(st, x.to(dev), y.to(dev), mask.to(dev))
+        new, _ = step.apply_updates(st, loss, stats, grads)
+        return (loss.item(), {k: v.cpu() for k, v in stats.items()}, {k: v.cpu() for k, v in grads.items()},
+                {k: v.cpu() for k, v in new.params.items()}, time.perf_counter() - t0)
+
+    f32, f64 = torch.float32, torch.float64
+    cpu32, card32, cpu64, card64 = (run(ucfg, dev, dtype) for dtype in (f32, f64) for dev in ("cpu", "cuda"))
+    card32_tf32 = run(ucfg, "cuda", f32, tf32=True)
+    tanh_cpu32, tanh_card32, tanh_card64 = run(tanh, "cpu", f32), run(tanh, "cuda", f32), run(tanh, "cuda", f64)
+    tanh_card32_tf32 = run(tanh, "cuda", f32, tf32=True)
+    (lc, sc, _, pc, tc), (lg, sg, _, pg, _) = cpu32, card32
+    stat_err = max((sg[k] - sc[k]).abs().max().item() for k in sc)
+    param_err = max((pg[k] - pc[k]).abs().max().item() for k in pc)
+
+    def errs(a, b):
+        """(relative L2 error, tensor) of a's gradients against b's, worst first."""
+        return sorted(((rel_l2(a[2][k], b[2][k]), k) for k in b[2]), reverse=True)
+
+    g64 = errs(card64, cpu64)
+    table = {
+        "relu card f32 vs card f64": errs(card32, card64), "relu cpu f32 vs card f64": errs(cpu32, card64),
+        "relu card f32 vs cpu f32": errs(card32, cpu32),
+        "relu card f32 TF32 (control) vs card f64": errs(card32_tf32, card64),
+        "tanh card f32 vs cpu f32": errs(tanh_card32, tanh_cpu32),
+        "tanh card f32 vs card f64": errs(tanh_card32, tanh_card64),
+        "tanh cpu f32 vs card f64": errs(tanh_cpu32, tanh_card64),
+        "tanh card f32 TF32 (control) vs cpu f32": errs(tanh_card32_tf32, tanh_cpu32),
+    }
+    median = {tag: e[len(e) // 2][0] for tag, e in table.items()}
+    print(f"train step, card vs CPU (2 finger samples; CPU f32 {tc:.2f} s, CPU f64 {cpu64[4]:.2f} s, CPU tanh f32 "
+          f"{tanh_cpu32[4]:.2f} s): relu f32 loss {lg:.7f} vs {lc:.7f}; BN stats max|diff| {stat_err:.3e}; params "
+          f"max|diff| {param_err:.3e}; f64 gradients rel L2 worst {g64[0][0]:.3e} ({g64[0][1]})", flush=True)
+    for tag, e in table.items():
+        print(f"  gradients, {tag}: rel L2 median {median[tag]:.3e}, worst {e[0][0]:.3e} ({e[0][1]})", flush=True)
+    ratio = median["relu card f32 vs card f64"] / median["relu cpu f32 vs card f64"]
+    ratio_tf32 = median["relu card f32 TF32 (control) vs card f64"] / median["relu cpu f32 vs card f64"]
+    print(f"  relu f32 gradients' median error against f64, card over CPU: {ratio:.3f} (bar 2); "
+          f"with TF32 forced on: {ratio_tf32:.3f}", flush=True)
+    check(abs(lg - lc) <= 1e-4 * abs(lc), f"train step loss: card {lg} vs CPU {lc}")
+    for k in sc:
+        check(torch.allclose(sg[k], sc[k], rtol=1e-4, atol=1e-6), f"train step BN statistic {k} differs")
+    for k in pc:
+        check(torch.allclose(pg[k], pc[k], rtol=5e-3, atol=2e-3), f"train step parameter {k} differs")
+    check(g64[0][0] < 1e-3, f"float64 train step gradient {g64[0][1]}: card vs CPU relative L2 {g64[0][0]}")
+    check(ratio <= 2, f"the card's float32 relu gradients are {ratio}x as far from float64 as the CPU's")
+    worst = table["tanh card f32 vs cpu f32"][0]
+    check(worst[0] < 1e-3, f"tanh float32 train step gradient {worst[1]}: card vs CPU relative L2 {worst[0]}")
+    control = table["tanh card f32 TF32 (control) vs cpu f32"][0][0]
+    check(ratio_tf32 > 2 and control >= 1e-3,
+          f"the gradient bars miss TF32: relu ratio {ratio_tf32}, tanh worst {control}")
+    return {"loss_card": lg, "loss_cpu": lc, "bn_stats_max_abs_diff": stat_err, "params_max_abs_diff": param_err,
+            "f64_grad_rel_l2_worst": g64[0][0], "cpu_f32_step_s": tc, "cpu_f64_step_s": cpu64[4],
+            "relu_f32_median_ratio": ratio, "relu_f32_median_ratio_tf32_control": ratio_tf32,
+            "grad_rel_l2": {tag: {"median": median[tag], "worst": e[0][0], "worst_tensor": e[0][1]}
+                            for tag, e in table.items()}}
+
+
+def check_bf16_learning(ucfg, train):
+    """The loss on one fixed batch of 16 falls over 20 bfloat16 steps."""
+    opt = make_optimizer()
+    step = make_train_step(ucfg, opt, compute_dtype=torch.bfloat16, masked=True)
+    state = create_train_state(ucfg, opt, generator=torch.Generator().manual_seed(1), device="cuda")
+    x, y = train.tactile_image[:TRAIN_BATCH], train.depth_image[:TRAIN_BATCH]
+    mask = torch.ones(TRAIN_BATCH, dtype=torch.bool, device="cuda")
+    losses = []
+    for _ in range(20):
+        state, loss = step(state, x, y, mask)
+        losses.append(loss)
+    losses = [v.item() for v in losses]
+    print(f"bf16 train steps on one batch of {TRAIN_BATCH}: loss {losses[0]:.5f} -> {losses[-1]:.5f} "
+          f"(min {min(losses):.5f})", flush=True)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"bf16 loss did not fall: {losses}")
+    return losses
+
+
+def drive_training(cfg, train, val, test, base):
+    """Trainer.fit for 2 epochs on the synthetic set, float32; then the
+    best-val checkpoint served on the card through fused_preprocess_dual,
+    and a save_resume_state -> load_resume_state round trip held bit for
+    bit to the live state. Returns the record and the kernel launches of
+    the path."""
+    fused_preprocess_dual.launches = 0
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, train, val, test, output_dir=out, seed=0, log_fn=lambda m: None, enable_plots=False)
+        hist = tr.fit(max_epochs=2)
+        fit_s = time.perf_counter() - t0
+        print(f"Trainer.fit 2 epochs (128/16/16 finger samples, batch {cfg.batch_size}, f32): {fit_s:.2f} s, "
+              f"history {hist}", flush=True)
+        check(all(np.isfinite(v) for vs in hist.values() for v in vs) and len(hist["train_loss"]) == 2,
+              f"Trainer history {hist}")
+        wdir = os.path.join(out, "weights")
+        check(os.path.exists(os.path.join(wdir, f"{cfg.weights_name}.npz")), "no best-val checkpoint written")
+        pred = Predictor.from_checkpoint(wdir)
+        frames = rand((1, 6, *FRAME), torch.Generator(device="cuda").manual_seed(5))
+        depth = pred.predict_dual_frames(frames, base, FRAME)
+        torch.cuda.synchronize()
+        check(tuple(depth.shape) == (1, 2, *FRAME) and bool(torch.isfinite(depth).all()),
+              f"serving the trained checkpoint: {tuple(depth.shape)}")
+        live = {k: v.clone() for k, v in tr.state.tensors().items()}
+        tr.save_resume_state()
+        tr.load_resume_state()
+        loaded = tr.state.tensors()
+        same = set(loaded) == set(live) and all(
+            torch.equal(loaded[k], v) and loaded[k].device == v.device for k, v in live.items())
+        check(same and tr.epoch == 2, "resume round trip differs from the live state")
+    launches = {"fused_preprocess_dual": fused_preprocess_dual.launches}
+    print(f"training path launches: {launches}; resume round trip bit for bit", flush=True)
+    check(launches["fused_preprocess_dual"] == 1, f"serving the trained checkpoint launched {launches}")
+    return {"fit_s": fit_s, "history": hist, "served_depth_range_mm": [depth.min().item(), depth.max().item()]}, launches
+
+
+def measure_training(ucfg, train, peaks):
+    """Train-step times at batch 16, float32 and bfloat16: device time of
+    a step, of its optimizer + EMA half alone, and host time of a step
+    ending in a synchronize; a trace's idle share, device ops and time by
+    layer; peak memory; the step's conv FLOPs over the card's peak."""
+    _, f32_peak, _, bf16_peak = peaks
+    fwd, first = unet_conv_flops(ucfg, NET_IN)
+    step_flops = TRAIN_BATCH * (3 * fwd - first)  # forward, weight and data gradients; no data gradient for x
+    x, y = train.tactile_image[:TRAIN_BATCH], train.depth_image[:TRAIN_BATCH]
+    mask = torch.ones(TRAIN_BATCH, dtype=torch.bool, device="cuda")
+    out = {"conv_gflop_forward_per_image": fwd / 1e9, "conv_tflop_per_step": step_flops / 1e12}
+    print(f"conv FLOPs: {fwd / 1e9:.3f} GFLOP a forward of one {NET_IN} finger image, "
+          f"{step_flops / 1e12:.4f} TFLOP a train step of {TRAIN_BATCH}", flush=True)
+    for tag, dtype, peak in (("f32", torch.float32, f32_peak), ("bf16", torch.bfloat16, bf16_peak)):
+        opt = make_optimizer()
+        step = make_train_step(ucfg, opt, compute_dtype=dtype, masked=True)
+        state = create_train_state(ucfg, opt, generator=torch.Generator().manual_seed(2), device="cuda")
+        state, _ = step(state, x, y, mask)  # Adam's moments no longer zero
+        run = lambda: step(state, x, y, mask)  # noqa: E731
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        peak_mem = torch.cuda.max_memory_allocated()
+        step_ms = device_ms(run, calls=5)
+        grads = step.loss_and_grads(state, x, y, mask)
+        update_ms = device_ms(lambda: step.apply_updates(state, *grads), calls=10)
+        del grads
+        call = host_ms(run, reps=5, warmup=1)
+        rec = out[tag] = {
+            "step_device_ms": step_ms, "step_host_ms": call,
+            "finger_images_per_s_device": 1e3 * TRAIN_BATCH / step_ms,
+            "finger_images_per_s_host": 1e3 * TRAIN_BATCH / call,
+            "optimizer_ema_device_ms": update_ms,
+            "max_memory_allocated_gib": peak_mem / 2 ** 30, "step_memory_gib": (peak_mem - base_mem) / 2 ** 30,
+            # the step's conv FLOPs over the whole step's device time
+            "conv_bound_ms": 1e3 * step_flops / peak, "conv_flops_share_of_peak": step_flops / (step_ms * 1e-3) / peak,
+        }
+        print(f"train step {tag} batch {TRAIN_BATCH}: device {step_ms:.3f} ms ({rec['finger_images_per_s_device']:.1f} "
+              f"finger images/s), host {call:.3f} ms ({rec['finger_images_per_s_host']:.1f}/s); optimizer + EMA "
+              f"{update_ms:.3f} ms; max_memory_allocated {rec['max_memory_allocated_gib']:.2f} GiB "
+              f"({rec['step_memory_gib']:.2f} for the step); convs at the {peak / 1e12:.0f} TFLOP/s peak "
+              f"{rec['conv_bound_ms']:.3f} ms, {100 * rec['conv_flops_share_of_peak']:.1f}% of it over the step's time",
+              flush=True)
+        events = device_events(run, 1, sync_each=True)
+        by_name = {}
+        for e in events:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        rec["heaviest_kernels_ms"] = {n[:120]: us / 1e3 for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
+        print(f"train step {tag}, heaviest device kernels of one step: "
+              + "; ".join(f"{n} {ms:.3f} ms" for n, ms in rec["heaviest_kernels_ms"].items()), flush=True)
+        prof = device_profile(run, calls=3, op_keys=TRAIN_OP_KEYS, other=TRAIN_LIBRARY_OPS)
+        if prof is None:
+            print(f"train step {tag}: the trace holds no device events; idle share not measured", flush=True)
+            rec["device_profile"] = None
+        else:
+            busy, idle, ops, shares, ms = prof
+            conv_ms = sum(v for c, v in ms.items() if c in TRAIN_CONV_OPS)
+            rec["device_profile"] = {"busy_ms_per_step": busy, "idle_share": idle, "device_ops_per_step": ops,
+                                     "device_time_shares": shares, "device_ms_per_step": ms,
+                                     "conv_device_ms_per_step": conv_ms,
+                                     "conv_flops_share_of_peak_in_conv_time": step_flops / (conv_ms * 1e-3) / peak}
+            print(f"train step {tag} trace: busy {busy:.3f} ms/step, idle share {idle:.3f}, {ops:.1f} device "
+                  "ops/step; device ms: " + "; ".join(f"{c} {v:.3f}" for c, v in ms.items())
+                  + f"; convs {conv_ms:.3f} ms, their FLOPs over it "
+                  f"{100 * rec['device_profile']['conv_flops_share_of_peak_in_conv_time']:.1f}% of the peak", flush=True)
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
@@ -654,6 +966,14 @@ def main() -> None:
     launches, pred16 = drive_main_path(cfg, sd, frames64, base)
     int8_launches, qpred = drive_int8_path(pred16, frames64, base)
 
+    train_cfg = GelslimConfig(CNN_dimensions=cfg.CNN_dimensions, batch_size=TRAIN_BATCH, weights_name="trained",
+                              image_normalization_method="0_255_to_0_1", norm_scale=0.9, use_difference_image=True)
+    ucfg = train_cfg.unet_config()
+    train, val, test = training_sets()
+
+    # every profiler trace before the training checks: each kernel a process
+    # loads adds to what the profiler must follow, and after the parity
+    # steps (float64, tanh, TF32 controls) a trace once held no device events
     timings, e2e = measure(pred16, qpred, frames64, base, peaks)
     sites = measure_conv_sites(peaks, g)
     t = timings[64]
@@ -686,8 +1006,14 @@ def main() -> None:
         "sites": list(sites),
     }]
     print(json.dumps({"kernels": kernels}))
+    timing = measure_training(ucfg, train, peaks)
+
+    training = {"parity": check_train_step_parity(ucfg, train), "bf16_losses": check_bf16_learning(ucfg, train)}
+    training["fit"], train_launches = drive_training(train_cfg, train, val, test, base)
+    training["timing"] = timing
     print(json.dumps({"end_to_end": e2e, "kernel_N1": timings[1], "conv2d_int8_sites_N64": sites,
                       "int8_main_path_launches": int8_launches}))
+    print(json.dumps({"training": training, "training_path_launches": train_launches}))
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

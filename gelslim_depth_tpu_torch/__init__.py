@@ -4,12 +4,16 @@ GelSlim sensors on an NVIDIA GPU.
 Ported so far: the ops and config, the U-Net eval forward, reference and
 JAX-checkpoint weights in and out, fused dual-frame serving, whose
 diff + resize + normalize front end runs as a hand-written CUDA kernel,
-and int8 post-training-quantized serving, whose quantized convs run as a
-second one. The package imports torch and numpy, never JAX or
+int8 post-training-quantized serving, whose quantized convs run as a
+second one, and single-device training: the dataset bake, the train-mode
+U-Net, the Adam + EMA train step, checkpoints and resume, and the
+``Trainer``. The package imports torch and numpy, never JAX or
 gelslim_depth_tpu.
 """
 
 from gelslim_depth_tpu_torch.config import GelslimConfig
+from gelslim_depth_tpu_torch.data import bake_dataset
 from gelslim_depth_tpu_torch.inference import Predictor, QuantizedPredictor, predict_depth_from_RGB
+from gelslim_depth_tpu_torch.train import Trainer
 
-__all__ = ["GelslimConfig", "Predictor", "QuantizedPredictor", "predict_depth_from_RGB"]
+__all__ = ["GelslimConfig", "Predictor", "QuantizedPredictor", "Trainer", "bake_dataset", "predict_depth_from_RGB"]

@@ -25,6 +25,7 @@ import torch
 from gelslim_depth_tpu_torch import ops
 from gelslim_depth_tpu_torch.config import GelslimConfig
 from gelslim_depth_tpu_torch.models.unet import UNet
+from gelslim_depth_tpu_torch.utils.device import resolve_device
 
 
 def _preprocess(config: GelslimConfig, images: torch.Tensor) -> torch.Tensor:
@@ -113,13 +114,6 @@ def fused_predict_dual(
     return depth.reshape(n, 2, *output_size)
 
 
-def _serving_device(device) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
-    return dev
-
-
 class _Serving:
     """The predict API over ``self._net()``, a callable from the NCHW
     network input to NCHW float32 logits, on ``self.device``. Inputs may be
@@ -185,7 +179,7 @@ class Predictor(_Serving):
     ):
         self.config = config
         self.unet_cfg = config.unet_config()
-        self.device = _serving_device(device)
+        self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.state_dict = {k: torch.as_tensor(v) for k, v in state_dict.items()}
         self.net = self._unet().to_compute_dtype(compute_dtype)
@@ -259,7 +253,7 @@ class QuantizedPredictor(_Serving):
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute dtype must be float32 or bfloat16, got {compute_dtype}")
         self.config = config
-        self.device = _serving_device(device)
+        self.device = resolve_device(device)
         self.q = q.to(self.device)
         self.compute_dtype = compute_dtype
 

@@ -31,7 +31,6 @@ package's HWIO and ``(s, cin, s*cout)`` layouts.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -39,7 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from gelslim_depth_tpu_torch.models.unet import DoubleConv, UNet, UNetConfig, _no_cudnn_tf32
+from gelslim_depth_tpu_torch.models.unet import DoubleConv, UNet, UNetConfig, full_precision
 from gelslim_depth_tpu_torch.ops.kernels.conv_int8 import Epilogue, conv2d_int8, quant_act
 
 
@@ -355,7 +354,7 @@ class QuantizedUNet(nn.Module):
         def nchw(h):
             return h.permute(0, 3, 1, 2)
 
-        with _no_cudnn_tf32() if dtype == torch.float32 else contextlib.nullcontext():
+        with full_precision(dtype):
             inc = self.net.inc
             act = inc.double_conv[2]
             y = F.conv2d(x.to(dtype).contiguous(memory_format=torch.channels_last), ws["inc"], padding=1)

@@ -13,7 +13,11 @@ layout:
 
 The JAX package keeps HWIO conv kernels and (kh,kw,out,in) upconv kernels;
 both come back with ``transpose(3, 2, 0, 1)`` and go there with
-``transpose(2, 3, 1, 0)``.
+``transpose(2, 3, 1, 0)``. ``jax_path`` and ``state_key`` map one key
+to its (block, leaf) and back, so any part of a state (parameters,
+statistics, Adam moments, an EMA shadow) crosses with ``to_jax_tree`` /
+``from_jax_tree``; ``train_state_from_jax`` carries a whole JAX
+``TrainState`` across.
 """
 
 from __future__ import annotations
@@ -24,65 +28,130 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from gelslim_depth_tpu_torch.models.unet import UNet, UNetConfig
+from gelslim_depth_tpu_torch.models.unet import UNet, UNetConfig, unet_state_shapes
+
+
+_DC_LEAVES = {
+    "0.weight": "conv1_w", "1.weight": "bn1_scale", "1.bias": "bn1_bias",
+    "1.running_mean": "bn1_mean", "1.running_var": "bn1_var",
+    "3.weight": "conv2_w", "4.weight": "bn2_scale", "4.bias": "bn2_bias",
+    "4.running_mean": "bn2_mean", "4.running_var": "bn2_var",
+}
+_DC_KEYS = {leaf: key for key, leaf in _DC_LEAVES.items()}
+_KERNELS = ("conv1_w", "conv2_w", "upconv_w", "w")  # HWIO / (kh,kw,out,in) in JAX
+_STAT_LEAVES = ("bn1_mean", "bn1_var", "bn2_mean", "bn2_var")
+
+
+def jax_path(key: str) -> Tuple[str, str]:
+    """Reference state-dict key -> (JAX block, leaf): 'inc.double_conv.0.weight'
+    -> ('inc', 'conv1_w'), 'up.1.up.bias' -> ('up_1', 'upconv_b')."""
+    parts = key.split(".")
+    if parts[0] == "inc":
+        return "inc", _DC_LEAVES[".".join(parts[2:])]
+    if parts[0] == "down":
+        return f"down_{parts[1]}", _DC_LEAVES[".".join(parts[5:])]
+    if parts[0] == "up" and parts[2] == "up":
+        return f"up_{parts[1]}", {"weight": "upconv_w", "bias": "upconv_b"}[parts[3]]
+    if parts[0] == "up":
+        return f"up_{parts[1]}", _DC_LEAVES[".".join(parts[4:])]
+    if parts[0] == "outc":
+        return "outc", {"weight": "w", "bias": "b"}[parts[2]]
+    raise KeyError(f"{key!r} is not a U-Net state-dict key")
+
+
+def state_key(block: str, leaf: str) -> str:
+    """(JAX block, leaf) -> reference state-dict key; jax_path's inverse."""
+    if block == "outc":
+        return f"outc.conv.{ {'w': 'weight', 'b': 'bias'}[leaf] }"
+    if leaf in ("upconv_w", "upconv_b"):
+        return f"up.{block[3:]}.up.{ {'upconv_w': 'weight', 'upconv_b': 'bias'}[leaf] }"
+    prefix = {"inc": "inc.double_conv", "down": f"down.{block[5:]}.maxpool_conv.1.double_conv",
+              "up": f"up.{block[3:]}.conv.double_conv"}[block.split("_")[0]]
+    return f"{prefix}.{_DC_KEYS[leaf]}"
+
+
+def to_jax_tree(tensors) -> Dict[str, Dict[str, np.ndarray]]:
+    """Reference-layout tensors (any subset of a state dict: parameters,
+    statistics, Adam moments, an EMA shadow) -> the JAX package's nested
+    {block: {leaf: float32 array}}, kernels moved to its layouts."""
+    tree: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, v in tensors.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        block, leaf = jax_path(key)
+        a = np.array(torch.as_tensor(v).detach().cpu().float().numpy())
+        tree.setdefault(block, {})[leaf] = np.ascontiguousarray(a.transpose(2, 3, 1, 0)) if leaf in _KERNELS else a
+    return tree
+
+
+def from_jax_tree(tree) -> Dict[str, torch.Tensor]:
+    """to_jax_tree's inverse: {block: {leaf: array}} (numpy-convertible
+    leaves) -> reference-layout float32 CPU tensors."""
+    out: Dict[str, torch.Tensor] = {}
+    for block, leaves in tree.items():
+        for leaf, v in leaves.items():
+            a = np.array(v, dtype=np.float32)  # a writable copy
+            out[state_key(block, leaf)] = torch.from_numpy(
+                np.ascontiguousarray(a.transpose(3, 2, 0, 1)) if leaf in _KERNELS else a)
+    return out
+
+
+def check_layout(state_dict, cfg: UNetConfig, source: str) -> None:
+    """Raise unless state_dict holds exactly the keys and shapes of UNet(cfg)."""
+    want = unet_state_shapes(cfg)
+    got = {k: tuple(v.shape) for k, v in state_dict.items() if not k.endswith("num_batches_tracked")}
+    if got != want:
+        missing = sorted(set(want) - set(got))
+        extra = sorted(set(got) - set(want))
+        bad = sorted(k for k in set(got) & set(want) if got[k] != want[k])
+        raise ValueError(
+            f"{source} does not hold a U-Net of {cfg}: missing {missing[:5]}, "
+            f"unexpected {extra[:5]}, wrong shapes {bad[:5]}"
+        )
 
 
 def params_from_jax(params, batch_stats, cfg: UNetConfig) -> Dict[str, torch.Tensor]:
     """JAX-package ``(params, batch_stats)`` pytrees (numpy-convertible
     leaves) -> reference-layout state dict of float32 CPU tensors."""
-    out: Dict[str, torch.Tensor] = {}
-
-    def put(key, v, transpose=False):
-        a = np.array(v, dtype=np.float32)  # a writable copy
-        out[key] = torch.from_numpy(np.ascontiguousarray(a.transpose(3, 2, 0, 1)) if transpose else a)
-
-    def put_dc(prefix, p, s):
-        put(f"{prefix}.0.weight", p["conv1_w"], transpose=True)
-        put(f"{prefix}.1.weight", p["bn1_scale"])
-        put(f"{prefix}.1.bias", p["bn1_bias"])
-        put(f"{prefix}.1.running_mean", s["bn1_mean"])
-        put(f"{prefix}.1.running_var", s["bn1_var"])
-        put(f"{prefix}.3.weight", p["conv2_w"], transpose=True)
-        put(f"{prefix}.4.weight", p["bn2_scale"])
-        put(f"{prefix}.4.bias", p["bn2_bias"])
-        put(f"{prefix}.4.running_mean", s["bn2_mean"])
-        put(f"{prefix}.4.running_var", s["bn2_var"])
-
-    put_dc("inc.double_conv", params["inc"], batch_stats["inc"])
-    for i in range(cfg.num_levels - 1):
-        put_dc(f"down.{i}.maxpool_conv.1.double_conv", params[f"down_{i}"], batch_stats[f"down_{i}"])
-        put_dc(f"up.{i}.conv.double_conv", params[f"up_{i}"], batch_stats[f"up_{i}"])
-        put(f"up.{i}.up.weight", params[f"up_{i}"]["upconv_w"], transpose=True)
-        put(f"up.{i}.up.bias", params[f"up_{i}"]["upconv_b"])
-    put("outc.conv.weight", params["outc"]["w"], transpose=True)
-    put("outc.conv.bias", params["outc"]["b"])
+    out = {**from_jax_tree(params), **from_jax_tree(batch_stats)}
+    check_layout(out, cfg, "the JAX trees")
     return out
 
 
 def params_to_jax(state_dict, cfg: UNetConfig) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Reference-layout state dict -> the JAX package's ``(params,
     batch_stats)`` pytrees, as nested dicts of float32 numpy arrays."""
-
-    def get(key, transpose=False):
-        a = np.array(torch.as_tensor(state_dict[key]).detach().cpu().float().numpy())
-        return np.ascontiguousarray(a.transpose(2, 3, 1, 0)) if transpose else a
-
-    def dc(prefix):
-        p = {"conv1_w": get(f"{prefix}.0.weight", True), "bn1_scale": get(f"{prefix}.1.weight"),
-             "bn1_bias": get(f"{prefix}.1.bias"), "conv2_w": get(f"{prefix}.3.weight", True),
-             "bn2_scale": get(f"{prefix}.4.weight"), "bn2_bias": get(f"{prefix}.4.bias")}
-        s = {"bn1_mean": get(f"{prefix}.1.running_mean"), "bn1_var": get(f"{prefix}.1.running_var"),
-             "bn2_mean": get(f"{prefix}.4.running_mean"), "bn2_var": get(f"{prefix}.4.running_var")}
-        return p, s
-
+    check_layout(state_dict, cfg, "the state dict")
     params, stats = {}, {}
-    params["inc"], stats["inc"] = dc("inc.double_conv")
-    for i in range(cfg.num_levels - 1):
-        params[f"down_{i}"], stats[f"down_{i}"] = dc(f"down.{i}.maxpool_conv.1.double_conv")
-        p, stats[f"up_{i}"] = dc(f"up.{i}.conv.double_conv")
-        params[f"up_{i}"] = {"upconv_w": get(f"up.{i}.up.weight", True), "upconv_b": get(f"up.{i}.up.bias"), **p}
-    params["outc"] = {"w": get("outc.conv.weight", True), "b": get("outc.conv.bias")}
+    for block, leaves in to_jax_tree(state_dict).items():
+        params[block] = {k: v for k, v in leaves.items() if k not in _STAT_LEAVES}
+        if any(k in _STAT_LEAVES for k in leaves):
+            stats[block] = {k: v for k, v in leaves.items() if k in _STAT_LEAVES}
     return params, stats
+
+
+def train_state_from_jax(state, device="cpu"):
+    """A JAX-package ``TrainState`` (numpy-convertible leaves) -> the port's
+    ``TrainState`` on device: parameters, running statistics, Adam moments
+    and count (the ``scale_by_adam`` entry of the optimizer chain), EMA
+    shadow, count and decay, and step."""
+    from gelslim_depth_tpu_torch.train.ema import EmaState
+    from gelslim_depth_tpu_torch.train.steps import AdamState, TrainState
+
+    def tree(t):
+        return {k: v.to(device) for k, v in from_jax_tree(t).items()}
+
+    def count(v):
+        return torch.tensor(int(np.asarray(v)), dtype=torch.int32, device=device)
+
+    adam = state.opt_state[1]
+    return TrainState(
+        params=tree(state.params),
+        batch_stats=tree(state.batch_stats),
+        opt_state=AdamState(count(adam.count), tree(adam.mu), tree(adam.nu)),
+        ema=EmaState(tree(state.ema.shadow), count(state.ema.num_updates), float(state.ema.decay)),
+        step=count(state.step),
+    )
 
 
 def quantized_from_jax(q):
@@ -110,16 +179,5 @@ def load_torch_checkpoint(path: str, cfg: UNetConfig) -> Dict[str, Any]:
     """Load a reference ``.pth`` state dict onto the CPU and check that its
     keys and shapes are those of ``UNet(cfg)``."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
-    with torch.device("meta"):
-        want = {k: tuple(v.shape) for k, v in UNet(cfg).state_dict().items()
-                if not k.endswith("num_batches_tracked")}
-    got = {k: tuple(v.shape) for k, v in sd.items() if not k.endswith("num_batches_tracked")}
-    if got != want:
-        missing = sorted(set(want) - set(got))
-        extra = sorted(set(got) - set(want))
-        bad = sorted(k for k in set(got) & set(want) if got[k] != want[k])
-        raise ValueError(
-            f"{path} does not hold a U-Net of {cfg}: missing {missing[:5]}, "
-            f"unexpected {extra[:5]}, wrong shapes {bad[:5]}"
-        )
+    check_layout(sd, cfg, path)
     return sd

@@ -30,20 +30,32 @@ says, as the JAX package's ``Precision.HIGHEST`` does. bfloat16 follows
   through the activation, and is cast back to bfloat16;
 - the upconv output gets its bfloat16 bias added in bfloat16;
 - the head conv adds its bias in bfloat16, then casts to float32.
-Train-mode BatchNorm, rematerialization and sample masks are not ported yet.
+
+Training runs ``unet_apply``, the functional counterpart of
+``gelslim_depth_tpu.models.unet.unet_apply``: the same graph over
+reference-layout dictionaries of parameters and running statistics, in
+train mode (batch statistics, optionally mask-weighted, and a functional
+running-stat update) or in eval mode (the BN folded on the fly, so it
+follows parameters and statistics that change every step). Its float32
+parameters are cast to the compute dtype inside the forward, so bfloat16
+gradients land on float32 masters. ``init_unet`` and
+``reinit_weights_normal`` make a fresh model from a ``torch.Generator``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,19 +73,24 @@ class UNetConfig:
         return len(self.layer_dimensions)
 
 
+def _activation_fn(name: str):
+    if name == "relu":
+        return F.relu
+    if name == "tanh":
+        return torch.tanh
+    if name == "mish":
+        return lambda x: x * torch.tanh(F.softplus(x))
+    raise ValueError(f"Unknown activation {name!r}; expected relu|tanh|mish")
+
+
 class Activation(nn.Module):
     def __init__(self, name: str):
         super().__init__()
-        if name not in ("relu", "tanh", "mish"):
-            raise ValueError(f"Unknown activation {name!r}; expected relu|tanh|mish")
+        self.fn = _activation_fn(name)
         self.name = name
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.name == "relu":
-            return F.relu(x)
-        if self.name == "tanh":
-            return torch.tanh(x)
-        return x * torch.tanh(F.softplus(x))
+        return self.fn(x)
 
 
 @contextlib.contextmanager
@@ -84,6 +101,16 @@ def _no_cudnn_tf32():
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = prev
+
+
+def full_precision(dtype: torch.dtype):
+    """TF32 off for cuDNN's convs while float32 runs, as the JAX package's
+    ``Precision.HIGHEST`` asks; bfloat16 leaves the flag alone. A train
+    step holds it across its backward too. cuDNN still picks FFT and
+    Winograd algorithms for some float32 gradients; on an H100 they left
+    the flagship's gradients within 1.5x of exact float32 arithmetic's
+    error against float64 (PERF.md)."""
+    return _no_cudnn_tf32() if dtype == torch.float32 else contextlib.nullcontext()
 
 
 class DoubleConv(nn.Module):
@@ -213,7 +240,7 @@ class UNet(nn.Module):
         def at(block):
             return None if probe is None else lambda conv, h: probe(f"{block}/{conv}", h)
 
-        with _no_cudnn_tf32() if dtype == torch.float32 else contextlib.nullcontext():
+        with full_precision(dtype):
             skips = [self.inc(x, dtype, at("inc"))]
             for i, down in enumerate(self.down):
                 skips.append(down(skips[-1], dtype, at(f"down_{i}")))
@@ -221,3 +248,173 @@ class UNet(nn.Module):
             for j, up in enumerate(self.up):
                 h = up(h, skips[-2 - j], dtype, at(f"up_{j}"))
             return self.outc(h, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Functional U-Net over reference-layout dictionaries (training, eval step)
+# ---------------------------------------------------------------------------
+
+Params = Dict[str, torch.Tensor]
+BatchStats = Dict[str, torch.Tensor]
+
+
+def unet_state_shapes(cfg: UNetConfig) -> Dict[str, Tuple[int, ...]]:
+    """Shape of every reference state-dict entry of ``UNet(cfg)``."""
+    with torch.device("meta"):
+        return {k: tuple(v.shape) for k, v in UNet(cfg).state_dict().items()
+                if not k.endswith("num_batches_tracked")}
+
+
+def is_batch_stat(key: str) -> bool:
+    return key.endswith(("running_mean", "running_var"))
+
+
+def split_state_dict(state_dict) -> Tuple[Params, BatchStats]:
+    """Reference-layout state dict -> (trainable parameters, running
+    statistics) as float32 tensors; num_batches_tracked is dropped."""
+    params, stats = {}, {}
+    for k, v in state_dict.items():
+        if not k.endswith("num_batches_tracked"):
+            (stats if is_batch_stat(k) else params)[k] = torch.as_tensor(v, dtype=torch.float32)
+    return params, stats
+
+
+def init_unet(cfg: UNetConfig, generator: Optional[torch.Generator] = None) -> Tuple[Params, BatchStats]:
+    """Fresh (params, batch_stats) on the CPU, drawn as the JAX package's
+    ``init_unet`` draws them: every conv, upconv and head kernel and bias
+    U(-b, b) with b = 1/sqrt(fan_in), fan_in = input channels x kh x kw (an
+    upconv's input channels, where torch's ConvTranspose2d default takes its
+    output channels); BatchNorm scale 1, bias 0, running mean 0, var 1."""
+    shapes = unet_state_shapes(cfg)
+    params, stats = {}, {}
+    for k, shape in shapes.items():
+        if is_batch_stat(k):
+            stats[k] = torch.ones(shape) if k.endswith("running_var") else torch.zeros(shape)
+            continue
+        kernel = shapes[k.rsplit(".", 1)[0] + ".weight"]
+        if len(kernel) == 4:
+            transposed = k.split(".")[2] == "up"  # up.{j}.up.{weight,bias}: (in, out, kh, kw)
+            fan_in = kernel[0 if transposed else 1] * kernel[2] * kernel[3]
+            bound = fan_in ** -0.5
+            params[k] = torch.empty(shape).uniform_(-bound, bound, generator=generator)
+        else:
+            params[k] = torch.ones(shape) if k.endswith(".weight") else torch.zeros(shape)
+    return params, stats
+
+
+def reinit_weights_normal(params: Params, generator: Optional[torch.Generator] = None, std: float = 0.01) -> Params:
+    """The reference trainer re-initializes every parameter whose name holds
+    'weight' (conv and upconv kernels AND BatchNorm scales) to N(0, std),
+    leaving biases as they are (ref train_utils/train_unet.py:246-250)."""
+    return {k: std * torch.randn(v.shape, generator=generator) if k.endswith(".weight") else v
+            for k, v in params.items()}
+
+
+def _c(v: torch.Tensor) -> torch.Tensor:
+    return v.view(1, -1, 1, 1)
+
+
+def _batch_norm(y, prefix, i, params, stats, train, sample_weight):
+    """BatchNorm i of a DoubleConv: returns (out, batch mean, biased batch
+    var), the statistics None in eval. Train statistics are taken in
+    float32 as mean(x^2) - mean(x)^2, mask-weighted with sample_weight
+    ((N, 1, 1, 1) of 0/1), as ``gelslim_depth_tpu.models.unet._batch_norm``
+    takes them; eval folds the running statistics on the fly."""
+    scale, bias = params[f"{prefix}.{i}.weight"], params[f"{prefix}.{i}.bias"]
+    if not train:
+        inv = torch.rsqrt(stats[f"{prefix}.{i}.running_var"] + BN_EPS) * scale
+        return y * _c(inv) + _c(bias - stats[f"{prefix}.{i}.running_mean"] * inv), None, None
+    yf = y.to(torch.promote_types(y.dtype, torch.float32))  # bf16 -> f32; f64 stays
+    if sample_weight is None:
+        m = yf.mean((0, 2, 3))
+        v = (yf * yf).mean((0, 2, 3)) - m * m
+    else:
+        yw = yf * sample_weight
+        n = sample_weight.sum() * (y.shape[2] * y.shape[3])
+        m = yw.sum((0, 2, 3)) / n
+        v = (yf * yw).sum((0, 2, 3)) / n - m * m
+    return (yf - _c(m)) * _c(torch.rsqrt(v + BN_EPS)) * _c(scale) + _c(bias), m, v
+
+
+def _double_conv(x, prefix, *, params, stats, act, train, dtype, sample_weight):
+    """(conv -> BN -> activation) x 2 as a pure function: returns (y, the
+    block's new running statistics | None). It mutates nothing, so
+    recomputing it under torch.utils.checkpoint updates no statistic twice."""
+    y = F.conv2d(x.to(dtype), params[f"{prefix}.0.weight"].to(dtype), padding=1)
+    y, m1, v1 = _batch_norm(y, prefix, 1, params, stats, train, sample_weight)
+    y = act(y).to(dtype)
+    y = F.conv2d(y, params[f"{prefix}.3.weight"].to(dtype), padding=1)
+    y, m2, v2 = _batch_norm(y, prefix, 4, params, stats, train, sample_weight)
+    y = act(y).to(dtype)
+    if not train:
+        return y, None
+    # the running var takes the unbiased estimate; n counts the block
+    # input's pixels, as the JAX package counts them
+    if sample_weight is None:
+        n = x.shape[0] * x.shape[2] * x.shape[3]
+        corr = n / max(n - 1, 1)
+    else:
+        n = sample_weight.sum() * (x.shape[2] * x.shape[3])
+        corr = n / torch.clamp(n - 1.0, min=1.0)
+    updates = {}
+    for i, m, v in ((1, m1, v1), (4, m2, v2)):
+        mean, var = f"{prefix}.{i}.running_mean", f"{prefix}.{i}.running_var"
+        updates[mean] = (1 - BN_MOMENTUM) * stats[mean] + BN_MOMENTUM * m.detach()
+        updates[var] = (1 - BN_MOMENTUM) * stats[var] + BN_MOMENTUM * v.detach() * corr
+    return y, updates
+
+
+def unet_apply(
+    cfg: UNetConfig,
+    params: Params,
+    batch_stats: BatchStats,
+    x: torch.Tensor,
+    *,
+    train: bool = False,
+    compute_dtype: torch.dtype = torch.float32,
+    remat: bool = False,
+    sample_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, BatchStats]:
+    """Run the U-Net on NCHW x over reference-layout dictionaries: params
+    (conv kernels and biases, BN weight and bias) and batch_stats (BN
+    running mean and var). Returns (float32 NCHW logits, new batch_stats);
+    in eval mode batch_stats comes back as given. compute_dtype float64
+    runs the whole graph in float64 (float64 logits): the exact reference
+    that a float32 step's gradients are held to.
+
+    train=True normalizes with batch statistics and returns the running
+    statistics updated with momentum 0.1; sample_mask ((N,) bool) excludes
+    padded samples from every batch statistic and update. remat=True
+    recomputes each DoubleConv in the backward (torch.utils.checkpoint).
+    float32 runs its convs with cuDNN TF32 off; a train step holds
+    ``full_precision`` across its forward and backward."""
+    sample_weight = None
+    if train and sample_mask is not None:
+        sample_weight = sample_mask.to(torch.float32).view(-1, 1, 1, 1)
+    dtype = compute_dtype
+    dc = functools.partial(_double_conv, params=params, stats=batch_stats, act=_activation_fn(cfg.activation),
+                           train=train, dtype=dtype, sample_weight=sample_weight)
+    new_stats = dict(batch_stats) if train else batch_stats
+
+    def run_dc(h, prefix):
+        y, updates = torch.utils.checkpoint.checkpoint(dc, h, prefix, use_reentrant=False) if remat else dc(h, prefix)
+        if train:
+            new_stats.update(updates)
+        return y
+
+    with full_precision(dtype):
+        skips = [run_dc(x, "inc.double_conv")]
+        for i in range(cfg.num_levels - 1):
+            h = F.max_pool2d(skips[-1], cfg.maxpool_size)
+            skips.append(run_dc(h, f"down.{i}.maxpool_conv.1.double_conv"))
+        h = skips[-1]
+        for j in range(cfg.num_levels - 1):
+            skip = skips[-2 - j]
+            y = F.conv_transpose2d(h.to(dtype), params[f"up.{j}.up.weight"].to(dtype), stride=cfg.upconv_stride)
+            y = y.to(dtype) + _c(params[f"up.{j}.up.bias"].to(dtype))
+            dy, dx = skip.shape[2] - y.shape[2], skip.shape[3] - y.shape[3]
+            y = F.pad(y, [dx // 2, dx - dx // 2, dy // 2, dy - dy // 2])
+            h = run_dc(torch.cat([skip.to(dtype), y], dim=1), f"up.{j}.conv.double_conv")
+        out = F.conv2d(h.to(dtype), params["outc.conv.weight"].to(dtype))
+        out = out + _c(params["outc.conv.bias"].to(out.dtype))
+    return out.to(torch.promote_types(out.dtype, torch.float32)), new_stats

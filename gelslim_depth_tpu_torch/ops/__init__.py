@@ -2,6 +2,8 @@
 at axis -3), mirroring ``gelslim_depth_tpu.ops``:
 
 - image.get_difference_image          (ref: processing_utils/image_utils.py:6)
+- image.gaussian_blur / blur_depth_images
+                                      (ref: processing_utils/image_utils.py:17)
 - resize.area_resize / resize.resize  (ref: processing_utils/image_utils.py:12)
 - normalize.normalize_tactile_image / denormalize_tactile_image
                                       (ref: processing_utils/normalization_utils.py:4,37)
@@ -11,7 +13,7 @@ at axis -3), mirroring ``gelslim_depth_tpu.ops``:
 The hand-written CUDA kernels live in ``ops.kernels``.
 """
 
-from gelslim_depth_tpu_torch.ops.image import get_difference_image
+from gelslim_depth_tpu_torch.ops.image import blur_depth_images, gaussian_blur, get_difference_image
 from gelslim_depth_tpu_torch.ops.resize import area_resize, resize
 from gelslim_depth_tpu_torch.ops.normalize import (
     normalize_tactile_image,
@@ -24,6 +26,8 @@ from gelslim_depth_tpu_torch.ops.normalize import (
 
 __all__ = [
     "get_difference_image",
+    "gaussian_blur",
+    "blur_depth_images",
     "area_resize",
     "resize",
     "normalize_tactile_image",

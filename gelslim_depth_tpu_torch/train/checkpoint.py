@@ -1,7 +1,12 @@
-"""Serving checkpoints in the JAX package's formats
+"""Checkpoints in the JAX package's formats
 (``gelslim_depth_tpu/train/checkpoint.py``), read and written:
 - ``save_weights`` / ``load_checkpoint``: ``<name>.npz`` + ``<name>.json``
   (and optionally ``config_<name>.py`` and a reference-layout ``<name>.pth``);
+- ``save_train_state`` / ``load_train_state``: the full resumable state
+  (parameters, statistics, Adam moments and count, EMA shadow, count and
+  decay, step) in ``<name>.npz`` under the JAX package's keys, optax's
+  ``opt_state/1/.mu/...`` included, so a run saved by either package
+  resumes in the other; written atomically and durably;
 - ``save_quantized`` / ``load_quantized``: ``<name>_int8.npz`` +
   ``<name>_int8.json``, the int8 model of ``models/quantize.py``.
 
@@ -22,6 +27,25 @@ import numpy as np
 import torch
 
 from gelslim_depth_tpu_torch.config import GelslimConfig
+
+
+def replace_durable(tmp: str, path: str) -> None:
+    """os.replace(tmp, path) with fsync of the data and the directory:
+    atomic against preemption and durable against a host crash, which
+    could otherwise surface a zero-length file at the final path."""
+    with open(tmp, "rb") as f:
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    try:
+        dfd = os.open(os.path.dirname(os.path.abspath(path)), os.O_RDONLY)
+        try:
+            os.fsync(dfd)
+        finally:
+            os.close(dfd)
+    except OSError:
+        # the directory fsync is best effort (some filesystems refuse it);
+        # the data fsync already bounds the damage to a lost rename
+        pass
 
 
 def _unflatten(flat: Dict[str, np.ndarray], prefix: str) -> Dict[str, Any]:
@@ -89,7 +113,8 @@ def _resolve_checkpoint_name(ckpt_dir: str) -> str:
     cands = sorted(
         f[:-5]
         for f in os.listdir(ckpt_dir)
-        if f.endswith(".json") and not f.endswith("state.json")
+        # train-state files and the Trainer's resume sidecar are no candidates
+        if f.endswith(".json") and not f.endswith(("state.json", "_loop.json"))
     )
     if not cands:
         raise FileNotFoundError(f"no checkpoint .json in {ckpt_dir}")
@@ -202,4 +227,55 @@ def load_quantized(ckpt_dir: str, name: str = None):
     return config, QuantizedUNet(
         net, {s: w8[s] for s in sites}, {s: w_scale[s] for s in sites},
         {k: float(v) for k, v in act_scale.items()}, float(flat["float_delta"]),
+    )
+
+
+# the optax chain (add_decayed_weights, scale_by_adam, scale) keeps its
+# Adam state at index 1
+_ADAM = "opt_state/1/."
+
+
+def save_train_state(ckpt_dir: str, state, *, name: str = "train_state") -> str:
+    """Full resumable state in the JAX package's ``save_train_state`` layout."""
+    from gelslim_depth_tpu_torch.models.torch_import import to_jax_tree
+
+    os.makedirs(ckpt_dir, exist_ok=True)
+    flat = {}
+    for prefix, tree in (("params/", state.params), ("batch_stats/", state.batch_stats),
+                         (f"{_ADAM}mu/", state.opt_state.mu), (f"{_ADAM}nu/", state.opt_state.nu),
+                         ("ema_shadow/", state.ema.shadow)):
+        flat.update(_flatten(to_jax_tree(tree), prefix))
+    flat[f"{_ADAM}count"] = np.asarray(np.int32(state.opt_state.count.item()))
+    flat["__num_updates"] = np.asarray(np.int32(state.ema.num_updates.item()))
+    flat["__ema_decay"] = np.asarray(state.ema.decay)
+    flat["__step"] = np.asarray(np.int32(state.step.item()))
+    path = os.path.join(ckpt_dir, f"{name}.npz")
+    tmp = os.path.join(ckpt_dir, f"{name}.tmp.npz")
+    np.savez(tmp, **flat)
+    replace_durable(tmp, path)
+    return path
+
+
+def load_train_state(ckpt_dir: str, *, name: str = "train_state", device="cpu"):
+    """A ``save_train_state`` file of either package -> the port's
+    ``TrainState`` on device."""
+    from gelslim_depth_tpu_torch.models.torch_import import from_jax_tree
+    from gelslim_depth_tpu_torch.train.ema import EmaState
+    from gelslim_depth_tpu_torch.train.steps import AdamState, TrainState
+
+    with np.load(os.path.join(ckpt_dir, f"{name}.npz")) as z:
+        flat = {k: z[k] for k in z.files}
+
+    def tree(prefix):
+        return {k: v.to(device) for k, v in from_jax_tree(_unflatten(flat, prefix)).items()}
+
+    def count(key):
+        return torch.tensor(int(flat[key]), dtype=torch.int32, device=device)
+
+    return TrainState(
+        params=tree("params/"),
+        batch_stats=tree("batch_stats/"),
+        opt_state=AdamState(count(f"{_ADAM}count"), tree(f"{_ADAM}mu/"), tree(f"{_ADAM}nu/")),
+        ema=EmaState(tree("ema_shadow/"), count("__num_updates"), float(flat["__ema_decay"])),
+        step=count("__step"),
     )

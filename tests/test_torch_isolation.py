@@ -58,6 +58,22 @@ def test_port_runs_with_jax_blocked(tmp_path):
         qpred.save("q")
         again = QuantizedPredictor.from_checkpoint("q", device="cpu", compute_dtype=torch.float32)
         assert torch.equal(again.predict_dual_frames(calib, frames[0], (16, 22)), out)
+        # training: bake a synthetic set, fit an epoch, resume for a second
+        from gelslim_depth_tpu_torch import Trainer, bake_dataset
+        from gelslim_depth_tpu_torch.data.synthetic import make_synthetic_object
+        objs = [make_synthetic_object(rng, n=3, image_size=(16, 22)) for _ in range(2)]
+        ds = bake_dataset(preloaded=objs, device="cpu", use_difference_image=True, depth_image_blur_kernel=3,
+                          image_normalization_method="0_255_to_0_1", norm_scale=0.9)
+        tcfg = GelslimConfig(CNN_dimensions=(4, 8), batch_size=4, weights_name="t")
+        tr = Trainer(tcfg, ds, ds, ds, output_dir="run", device="cpu", log_fn=lambda m: None)
+        hist = tr.fit(max_epochs=1)
+        tr.save_resume_state()
+        tr2 = Trainer(tcfg, ds, ds, ds, output_dir="run", device="cpu", log_fn=lambda m: None)
+        tr2.load_resume_state()
+        hist2 = tr2.fit(max_epochs=2)
+        assert hist2["train_loss"][0] == hist["train_loss"][0] and len(hist2["train_loss"]) == 2
+        served = Predictor.from_checkpoint("run/weights", device="cpu")
+        assert torch.isfinite(served.predict_dual_frames(calib, frames[0], (16, 22))).all()
         assert not any(m.split(".")[0] in Blocker.BLOCKED for m in sys.modules)
         print("NO-JAX-OK")
         """
@@ -95,7 +111,7 @@ def test_no_jax_import_in_port_sources():
     assert not offenders, offenders
 
 
-def test_no_quiet_cpu_fallback(monkeypatch):
+def test_no_quiet_cpu_fallback(monkeypatch, tmp_path):
     from gelslim_depth_tpu_torch import GelslimConfig, Predictor
     from gelslim_depth_tpu_torch.models import UNet
 
@@ -107,3 +123,18 @@ def test_no_quiet_cpu_fallback(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Predictor(cfg, sd, **kw)
     assert Predictor(cfg, sd, device="cpu").device.type == "cpu"
+
+    from gelslim_depth_tpu_torch import Trainer, bake_dataset
+    from gelslim_depth_tpu_torch.data.synthetic import make_synthetic_object
+
+    objs = [make_synthetic_object(np.random.RandomState(0), n=2, image_size=(16, 22))]
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bake_dataset(preloaded=objs, norm_scale=0.9, **kw)
+    ds = bake_dataset(preloaded=objs, norm_scale=0.9, device="cpu")
+    assert ds.tactile_image.device.type == "cpu"
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Trainer(cfg, ds, ds, ds, output_dir=str(tmp_path / "t"), **kw)
+    tr = Trainer(cfg, ds, ds, ds, output_dir=str(tmp_path / "t"), device="cpu", log_fn=lambda m: None)
+    assert all(v.device.type == "cpu" for v in tr.state.tensors().values())
