@@ -10,13 +10,17 @@ flagship dual-frame serving through ``Predictor`` (seeded random weights),
 then int8 serving through ``Predictor.quantize`` -> ``QuantizedPredictor``,
 then bakes a seeded synthetic training set from 320x427 frames. It times
 the kernels, the U-Nets and the train steps by their device time in a
-torch.profiler trace, and whole calls by the host clock. Then training:
-float32 train steps on the card against the same steps on the CPU, a
-bfloat16 loss that falls, and ``Trainer.fit`` on the synthetic set,
-served from its best checkpoint and resumed. Prints the card, a ``{"kernels": [...]}`` line, an end-to-end line,
-a training line and, last, ``{"ok": true, "device": {...}}``. Any failed check exits non-zero; with no
-CUDA device it exits non-zero before any result. Imports nothing of JAX or
-of the JAX package.
+torch.profiler trace, and whole calls by the host clock. Then the serving
+surface: ``entry()``, the ``StreamingEngine`` on the bf16 and int8
+predictors, and ``export_predictor`` -> ``ExportedPredictor`` of the int8,
+bf16 and f32 predictors. Then training: float32 train steps on the card
+against the same steps on the CPU, a bfloat16 loss that falls, and
+``Trainer.fit`` on the synthetic set, served from its best checkpoint,
+resumed, and exported by the CLI's ``export --check``. Prints the card, a
+``{"kernels": [...]}`` line, an end-to-end line, an engine and export line,
+a training line and, last, ``{"ok": true, "device": {...}}``. Any failed
+check exits non-zero; with no CUDA device it exits non-zero before any
+result. Imports nothing of JAX or of the JAX package.
 """
 
 import importlib.util
@@ -35,8 +39,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from gelslim_depth_tpu_torch import GelslimConfig, Predictor, Trainer, bake_dataset
+from gelslim_depth_tpu_torch import GelslimConfig, Predictor, StreamingEngine, Trainer, bake_dataset, cli
 from gelslim_depth_tpu_torch.data.synthetic import make_synthetic_object
+from gelslim_depth_tpu_torch.entry import entry, flagship_config
+from gelslim_depth_tpu_torch.export import ExportedPredictor, export_predictor
 from gelslim_depth_tpu_torch.inference import fused_predict_dual
 from gelslim_depth_tpu_torch.models.unet import unet_state_shapes
 from gelslim_depth_tpu_torch.models import quantize as quantize_module
@@ -127,19 +133,6 @@ def card_peaks(name: str):
         if key in name:
             return peaks
     fail(f"no data-sheet peaks for {name!r}")
-
-
-def flagship_config() -> GelslimConfig:
-    """The flagship serving config (unet_bigdata shapes)."""
-    return GelslimConfig(
-        CNN_dimensions=(64, 128, 256, 512, 1024),
-        input_tactile_image_size=NET_IN,
-        image_normalization_method="0_255_to_0_1",
-        depth_normalization_method="min_max_to_0_-1",
-        depth_normalization_parameters=(-1.9180814027786255, 0.0),
-        norm_scale=0.9,
-        use_difference_image=True,
-    )
 
 
 def flagship_launches(n_img: int, int8_upconvs: bool = False):
@@ -655,6 +648,247 @@ def measure(pred16, qpred, frames64, base, peaks):
     return timings, e2e
 
 
+def reset_launches() -> None:
+    fused_preprocess_dual.launches = 0
+    conv2d_int8.launches = 0
+    conv2d_int8.launches_by_path = dict.fromkeys(conv_int8.PATHS, 0)
+
+
+def read_launches() -> dict:
+    return {"fused_preprocess_dual": fused_preprocess_dual.launches, "conv2d_int8": conv2d_int8.launches,
+            "conv2d_int8_by_path": dict(conv2d_int8.launches_by_path)}
+
+
+def drive_entry():
+    """The port's entry(): the bf16 flagship on the card, one call on its
+    two example dual frames. Returns the call's launches."""
+    fn, args = entry()
+    reset_launches()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(tuple(out.shape) == (2, 2, *FRAME), f"entry: shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()) and out.max().item() <= 0.0,
+          f"entry: depth not finite and <= 0: [{out.min().item()}, {out.max().item()}]")
+    check(launches["fused_preprocess_dual"] == 1, f"entry: launches {launches}")
+    print(f"entry(): fn(frames, base) -> {tuple(out.shape)} mm in [{out.min().item():.3f}, "
+          f"{out.max().item():.3f}]; launches {launches}", flush=True)
+    return launches
+
+
+def submit_does_not_wait(pred, host_frames, base):
+    """Holds the stream busy (~0.1 s of device sleep), submits two frames and
+    checks that both dispatches still report not done when submit returns:
+    the upload does not synchronize the stream. Returns the host seconds of
+    the two submits."""
+    eng = StreamingEngine(pred, FRAME, base_frame=base, max_inflight=8, max_dispatches=2)
+    for f in host_frames[:4]:  # warm: pinned blocks exist
+        eng.submit(f)
+    eng.drain()
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    eng.submit(host_frames[0])
+    eng.submit(host_frames[1])
+    host_s = time.perf_counter() - t0
+    in_flight = [d.done.query() for d in eng._outstanding]
+    check(len(in_flight) == 2 and not any(in_flight),
+          f"submit waited for the dispatch in flight: done {in_flight} after {host_s:.4f} s")
+    eng.drain()
+    return host_s
+
+
+def coalesced_run(pred, frames, host_frames, base, want):
+    """The stream held busy (~0.1 s of device sleep) while 8 frames arrive,
+    one dispatch slot: the engine coalesces them into micro-batches of 1,
+    4, 2 and 1. Each output must equal the predictor's call on the same
+    micro-batch (within 1e-6 mm: the same shapes run the same algorithms),
+    and lie within the 0.05 mm parity gate of predict_dual_frames of its
+    frame alone (bf16 convs round elsewhere at other batch sizes). Returns
+    (mean dispatch size, largest |diff| against the same micro-batches, and
+    against the frames alone, in mm)."""
+    eng = StreamingEngine(pred, FRAME, base_frame=base, max_inflight=8, microbatch=4, max_dispatches=1)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    for f in host_frames[:8]:
+        eng.submit(f)
+    outs = np.concatenate(eng.drain())
+    st = eng.stats()
+    with torch.inference_mode():
+        same = torch.cat([pred.predict_dual_frames(frames[i:i + k], base, FRAME)
+                          for i, k in ((0, 1), (1, 4), (5, 2), (7, 1))]).cpu().numpy()
+    err_same = float(np.abs(outs - same).max())
+    err_alone = float(np.abs(outs - np.concatenate(want[:8])).max())
+    check(st["dispatches"] == 4 and st["completed"] == 8, f"coalesced run: stats {st}")
+    check(err_same <= 1e-6, f"coalesced run: output differs from the same micro-batches by {err_same} mm")
+    check(err_alone < 0.05, f"coalesced run: output differs from predict_dual_frames by {err_alone} mm")
+    return st["mean_dispatch_size"], err_same, err_alone
+
+
+def drive_engine(pred16, qpred, frames64, base, e2e):
+    """StreamingEngine on the bf16 and the int8 flagship predictors at
+    micro-batches 1, 2 and 4, two dispatch slots: 256 host numpy frames
+    (64 distinct, cycled) submitted back to back, then drained. Every
+    output within 1e-3 mm of predict_dual_frames of its frame (cuDNN may
+    take other algorithms at other batch sizes); launches per dispatch:
+    one fused_preprocess_dual, and 17 conv2d_int8 for int8. Returns the
+    records and the launches over the runs."""
+    host = [f.cpu().numpy() for f in frames64]
+    sites = len(quantize_module._quantized_sites(qpred.q.cfg))
+    out, total = {}, dict.fromkeys(("fused_preprocess_dual", "conv2d_int8"), 0)
+    for tag, pred in (("bf16", pred16), ("int8", qpred)):
+        with torch.inference_mode():
+            want = [pred.predict_dual_frames(f[None], base, FRAME).cpu().numpy() for f in frames64]
+        probe_s = submit_does_not_wait(pred, host, base)
+        coalesced = coalesced_run(pred, frames64, host, base, want)
+        print(f"engine {tag}: submit returned with both dispatches in flight ({probe_s * 1e3:.2f} ms for two "
+              f"submits behind a device sleep); 8 frames behind a busy stream coalesced to a mean dispatch of "
+              f"{coalesced[0]:.2f} frames, max|diff| {coalesced[1]:.3e} mm vs the same micro-batches, "
+              f"{coalesced[2]:.3e} mm vs predict_dual_frames of each frame", flush=True)
+        stager = StreamingEngine(pred, FRAME)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in host:
+            stager._stage(f)
+        stage_ms = 1e3 * (time.perf_counter() - t0) / len(host)
+        torch.cuda.synchronize()
+        for mb in (1, 2, 4):
+            eng = StreamingEngine(pred, FRAME, base_frame=base, max_inflight=256, drop_policy="block",
+                                  microbatch=mb, max_dispatches=2)
+            torch.cuda.synchronize()
+            reset_launches()
+            not_done = 0
+            t0 = time.perf_counter()
+            for i in range(256):
+                prev = eng._outstanding[-1] if eng._outstanding else None
+                eng.submit(host[i % 64])
+                not_done += prev is not None and not prev.done.query()
+            submit_ms = 1e3 * (time.perf_counter() - t0) / 256
+            outs = eng.drain()
+            launches = read_launches()
+            st = eng.stats()
+            err = max(float(np.abs(o - want[i % 64]).max()) for i, o in enumerate(outs))
+            rec = out[f"{tag}_mb{mb}"] = {
+                "frames_per_s": st["throughput_fps"], "mean_latency_ms": st["mean_latency_ms"],
+                "mean_dispatch_size": st["mean_dispatch_size"], "dispatches": st["dispatches"],
+                "submit_host_ms": submit_ms, "max_abs_diff_mm": err, "launches": launches,
+                "submits_returned_with_previous_dispatch_not_done": not_done,
+                "n1_call_ms": e2e[f"{tag}_N1"]["call_ms"], "submit_probe_s": probe_s,
+                "coalesced_mean_dispatch": coalesced[0], "coalesced_max_abs_diff_mm": coalesced[1],
+                "coalesced_vs_n1_max_abs_diff_mm": coalesced[2],
+                "stage_host_ms": stage_ms}
+            print(f"engine {tag} microbatch {mb}: {st['throughput_fps']:.1f} dual frames/s (N=1 call "
+                  f"{rec['n1_call_ms']:.3f} ms, i.e. {1e3 / rec['n1_call_ms']:.1f}/s), mean latency "
+                  f"{st['mean_latency_ms']:.2f} ms, mean dispatch {st['mean_dispatch_size']:.2f} frames over "
+                  f"{st['dispatches']} dispatches, submit {submit_ms:.3f} ms host ({stage_ms:.3f} of it staging the frame), "
+                  f"{not_done}/256 submits returned "
+                  f"with the previous dispatch not done; max|diff| vs predict_dual_frames {err:.3e} mm; "
+                  f"launches {launches}", flush=True)
+            check(st["completed"] == 256 and st["dropped"] == 0, f"engine {tag} mb {mb}: stats {st}")
+            check(err <= 1e-3, f"engine {tag} mb {mb}: output differs from predict_dual_frames by {err} mm")
+            check(launches["fused_preprocess_dual"] == st["dispatches"],
+                  f"engine {tag} mb {mb}: {launches} over {st['dispatches']} dispatches")
+            want_conv = sites * st["dispatches"] if tag == "int8" else 0
+            check(launches["conv2d_int8"] == want_conv,
+                  f"engine {tag} mb {mb}: conv2d_int8 launches {launches['conv2d_int8']}, want {want_conv}")
+            for k in total:
+                total[k] += launches[k]
+    return out, total
+
+
+@contextlib.contextmanager
+def torch_tf32_everywhere():
+    """TF32 on for cuDNN's convs and float32 matmuls, set globally."""
+    prev = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev[0]
+        torch.set_float32_matmul_precision(prev[1])
+
+
+def drive_export(cfg, sd, pred16, qpred, frames64, base):
+    """export_predictor of the bf16, int8 and f32 flagship predictors at
+    batch sizes (1, 64), reloaded with ExportedPredictor.load. int8 at
+    N=64 bit for bit with QuantizedPredictor, one call launching 17
+    conv2d_int8 and one fused_preprocess_dual; bf16 and f32 within 1e-4 mm
+    RMSE of the live predictor, f32 called with TF32 on globally (a
+    control: the graph called without the artifact's precision flags must
+    miss that bar); N=2 runs two b1 graphs. Times the exported and the
+    live call at N=1 and N=64. Returns the records and the launches."""
+    pred32 = Predictor(cfg, sd)
+    out, total = {}, dict.fromkeys(("fused_preprocess_dual", "conv2d_int8"), 0)
+    sites = len(quantize_module._quantized_sites(qpred.q.cfg))
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, pred in (("int8", qpred), ("bf16", pred16), ("f32", pred32)):
+            t0 = time.perf_counter()
+            path = export_predictor(pred, FRAME, path=os.path.join(tmp, f"{tag}.gsx"), batch_sizes=(1, 64),
+                                    frame_size=FRAME)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            served = ExportedPredictor.load(path)
+            load_s = time.perf_counter() - t0
+            with torch.inference_mode():
+                live = pred.predict_dual_frames(frames64, base, FRAME)
+            reset_launches()
+            if tag == "f32":
+                with torch_tf32_everywhere():
+                    got = served(frames64, base)
+            else:
+                got = served(frames64, base)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            rmse = (got - live).pow(2).mean().sqrt().item()
+            rec = out[tag] = {"export_s": export_s, "load_s": load_s, "artifact_mb": os.path.getsize(path) / 2 ** 20,
+                              "rmse_vs_live_mm_N64": rmse, "max_abs_diff_mm_N64": (got - live).abs().max().item(),
+                              "launches_N64": launches}
+            want_launch = (1, sites if tag == "int8" else 0)
+            check((launches["fused_preprocess_dual"], launches["conv2d_int8"]) == want_launch,
+                  f"export {tag} N=64: launches {launches}, want {want_launch}")
+            if tag == "int8":
+                check(torch.equal(got, live), f"exported int8 N=64 differs from QuantizedPredictor: RMSE {rmse} mm")
+                check(launches["conv2d_int8_by_path"][CONV_FAST_PATH] == sites,
+                      f"exported int8 N=64: {launches['conv2d_int8_by_path']}")
+            else:
+                check(rmse < 1e-4, f"exported {tag} N=64: RMSE {rmse} mm vs the live predictor")
+            if tag == "f32":
+                with torch_tf32_everywhere(), torch.inference_mode():  # the control
+                    bare = served._graphs[64](frames64.contiguous(), base.contiguous())
+                rec["control_tf32_rmse_mm"] = (bare - live).pow(2).mean().sqrt().item()
+                check(rec["control_tf32_rmse_mm"] >= 1e-4,
+                      f"the f32 bar misses TF32: the bare graph under TF32 is within {rec['control_tf32_rmse_mm']} mm")
+            # N=2 on a (1, 64) artifact: two b1 graphs, each held to a live N=1 call
+            reset_launches()
+            two = served(frames64[:2], base)
+            torch.cuda.synchronize()
+            n2 = read_launches()
+            check(served.dispatch_plan(2) == [(1, 1), (1, 1)] and n2["fused_preprocess_dual"] == 2
+                  and n2["conv2d_int8"] == (2 * sites if tag == "int8" else 0),
+                  f"export {tag} N=2: plan {served.dispatch_plan(2)}, launches {n2}")
+            with torch.inference_mode():
+                live1 = torch.cat([pred.predict_dual_frames(frames64[i:i + 1], base, FRAME) for i in range(2)])
+            rmse2 = (two - live1).pow(2).mean().sqrt().item()
+            check(torch.equal(two, live1) if tag == "int8" else rmse2 < 1e-4,
+                  f"export {tag} N=2 differs from two live N=1 calls: RMSE {rmse2} mm")
+            for k in total:
+                total[k] += launches[k] + n2[k]
+            for n in (1, 64):
+                f = frames64[:n]
+                rec[f"exported_call_ms_N{n}"] = host_ms(lambda: served(f, base))
+                rec[f"live_call_ms_N{n}"] = host_ms(lambda: pred.predict_dual_frames(f, base, FRAME))
+            rec["call_overhead_rows"] = rec["exported_call_ms_N1"] / (rec["exported_call_ms_N64"] / 64)
+            print(f"export {tag}: export {export_s:.1f} s, load {load_s:.1f} s, {rec['artifact_mb']:.0f} MiB; N=64 vs "
+                  f"live RMSE {rmse:.3e} mm (max|diff| {rec['max_abs_diff_mm_N64']:.3e})"
+                  + (f", TF32 control {rec['control_tf32_rmse_mm']:.3e} mm" if tag == "f32" else "")
+                  + f"; exported call {rec['exported_call_ms_N1']:.3f} ms at N=1, {rec['exported_call_ms_N64']:.3f} ms "
+                  f"at N=64 (live {rec['live_call_ms_N1']:.3f}, {rec['live_call_ms_N64']:.3f}); call overhead "
+                  f"{rec['call_overhead_rows']:.2f} rows; launches N=64 {launches}, N=2 {n2}", flush=True)
+            del served, got
+            torch.cuda.empty_cache()
+    return out, total
+
+
 def unet_conv_flops(cfg, hw):
     """Forward FLOPs of one image's convs (2 a multiply-add), from the
     shapes: padding-1 convs, floor max-pools, the transposed convs, the
@@ -863,10 +1097,23 @@ def drive_training(cfg, train, val, test, base):
         same = set(loaded) == set(live) and all(
             torch.equal(loaded[k], v) and loaded[k].device == v.device for k, v in live.items())
         check(same and tr.epoch == 2, "resume round trip differs from the live state")
-    launches = {"fused_preprocess_dual": fused_preprocess_dual.launches}
-    print(f"training path launches: {launches}; resume round trip bit for bit", flush=True)
-    check(launches["fused_preprocess_dual"] == 1, f"serving the trained checkpoint launched {launches}")
-    return {"fit_s": fit_s, "history": hist, "served_depth_range_mm": [depth.min().item(), depth.max().item()]}, launches
+        launches = {"fused_preprocess_dual": fused_preprocess_dual.launches}
+        print(f"training path launches: {launches}; resume round trip bit for bit", flush=True)
+        check(launches["fused_preprocess_dual"] == 1, f"serving the trained checkpoint launched {launches}")
+
+        # the export command on the fit checkpoint, in-process, on the card
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(["export", cfg.weights_name, "--weights_dir", wdir, "--batch_sizes", "1", "2", "--check",
+                       "--output", os.path.join(out, "trained.gsx")])
+        cli_s = time.perf_counter() - t0
+        launches["cli_export"] = read_launches()
+        print(f"cli export --check on the fit checkpoint: rc {rc} in {cli_s:.1f} s; launches "
+              f"{launches['cli_export']}", flush=True)
+        check(rc == 0 and launches["cli_export"]["fused_preprocess_dual"] > 0,
+              f"cli export: rc {rc}, launches {launches['cli_export']}")
+    return {"fit_s": fit_s, "history": hist, "served_depth_range_mm": [depth.min().item(), depth.max().item()],
+            "cli_export_s": cli_s}, launches
 
 
 def measure_training(ucfg, train, peaks):
@@ -976,6 +1223,11 @@ def main() -> None:
     # steps (float64, tanh, TF32 controls) a trace once held no device events
     timings, e2e = measure(pred16, qpred, frames64, base, peaks)
     sites = measure_conv_sites(peaks, g)
+    entry_launches = drive_entry()
+    engine, engine_launches = drive_engine(pred16, qpred, frames64, base, e2e)
+    exported, export_launches = drive_export(cfg, sd, pred16, qpred, frames64, base)
+    path_launches = {"main": {"fused_preprocess_dual": launches}, "int8": int8_launches, "entry": entry_launches,
+                     "engine": engine_launches, "export": export_launches}
     t = timings[64]
     sums = {k: sum(v[k] for v in sites.values()) for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bytes_ms", "ops_ms")}
     kernels = [{
@@ -983,7 +1235,7 @@ def main() -> None:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": launches,
+        "launches": sum(v.get("fused_preprocess_dual", 0) for v in path_launches.values()),
         "max_abs_err": max_err,
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
@@ -996,7 +1248,7 @@ def main() -> None:
         "route": "cuda",
         "source": CONV_SOURCE,
         "replaces": CONV_REPLACES,
-        "launches": int8_launches["conv2d_int8"],
+        "launches": sum(v.get("conv2d_int8", 0) for v in path_launches.values()),
         "max_abs_err": conv_err,
         "ms": sums["ms"],
         "plain_ms": sums["plain_ms"],
@@ -1012,7 +1264,8 @@ def main() -> None:
     training["fit"], train_launches = drive_training(train_cfg, train, val, test, base)
     training["timing"] = timing
     print(json.dumps({"end_to_end": e2e, "kernel_N1": timings[1], "conv2d_int8_sites_N64": sites,
-                      "int8_main_path_launches": int8_launches}))
+                      "launches_by_path": path_launches}))
+    print(json.dumps({"engine": engine, "export": exported}))
     print(json.dumps({"training": training, "training_path_launches": train_launches}))
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

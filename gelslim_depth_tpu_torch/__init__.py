@@ -7,13 +7,20 @@ diff + resize + normalize front end runs as a hand-written CUDA kernel,
 int8 post-training-quantized serving, whose quantized convs run as a
 second one, and single-device training: the dataset bake, the train-mode
 U-Net, the Adam + EMA train step, checkpoints and resume, and the
-``Trainer``. The package imports torch and numpy, never JAX or
+``Trainer``; and the serving surface: the ``StreamingEngine``, ``entry()``,
+export to a ``.gsx`` artifact of ``torch.export`` programs in which both
+kernels are ``torch.library`` custom ops, and the CLI's ``quantize``,
+``export`` and ``test`` commands (``python -m gelslim_depth_tpu_torch``).
+The package imports torch and numpy, never JAX or
 gelslim_depth_tpu.
 """
 
 from gelslim_depth_tpu_torch.config import GelslimConfig
 from gelslim_depth_tpu_torch.data import bake_dataset
-from gelslim_depth_tpu_torch.inference import Predictor, QuantizedPredictor, predict_depth_from_RGB
+from gelslim_depth_tpu_torch.inference import Predictor, QuantizedPredictor, StreamingEngine, predict_depth_from_RGB
 from gelslim_depth_tpu_torch.train import Trainer
 
-__all__ = ["GelslimConfig", "Predictor", "QuantizedPredictor", "Trainer", "bake_dataset", "predict_depth_from_RGB"]
+__all__ = [
+    "GelslimConfig", "Predictor", "QuantizedPredictor", "StreamingEngine", "Trainer", "bake_dataset",
+    "predict_depth_from_RGB",
+]

@@ -8,7 +8,9 @@ runs its diff + resize + normalize front end as one hand-written kernel
 (``ops.kernels.fused_preprocess_dual``), the U-Net as cuDNN convolutions
 (``Predictor``) or as hand-written int8 convolutions
 (``ops.kernels.conv2d_int8``, ``QuantizedPredictor``), and the denormalize +
-resize-back as plain tensor ops.
+resize-back as plain tensor ops. ``StreamingEngine`` feeds a predictor a
+live stream of single frames, coalescing those that arrive while the
+device is busy into micro-batches.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no CUDA device they raise rather than run on the CPU.
@@ -17,6 +19,8 @@ with no CUDA device they raise rather than run on the CPU.
 from __future__ import annotations
 
 import functools
+import time
+import warnings
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -200,11 +204,11 @@ class Predictor(_Serving):
         return cls(config, load_torch_checkpoint(path, config.unet_config()), **kw)
 
     @classmethod
-    def from_checkpoint(cls, ckpt_dir: str, **kw) -> "Predictor":
+    def from_checkpoint(cls, ckpt_dir: str, name: str = None, **kw) -> "Predictor":
         from gelslim_depth_tpu_torch.models.torch_import import params_from_jax
         from gelslim_depth_tpu_torch.train.checkpoint import load_checkpoint
 
-        config, params, stats = load_checkpoint(ckpt_dir)
+        config, params, stats = load_checkpoint(ckpt_dir, name)
         return cls(config, params_from_jax(params, stats, config.unet_config()), **kw)
 
     def quantize(
@@ -314,3 +318,285 @@ def predict_depth_from_RGB(images, model: Predictor, output_size, config: Gelsli
     """Reference-signature convenience wrapper
     (ref complete_prediction.py:4 — with the attribute-name bug fixed)."""
     return model.predict_depth_from_RGB(images, output_size)
+
+
+class _Completed:
+    """The "done" object of a dispatch that finished when it returned (a
+    predictor on the CPU)."""
+
+    def query(self) -> bool:
+        return True
+
+    def synchronize(self) -> None:
+        pass
+
+
+def _completion(out):
+    """The dispatch's "done" object, with ``query()`` (does not block) and
+    ``synchronize()``: a ``torch.cuda.Event`` recorded on the current stream
+    right after a dispatch on CUDA, else one that is already done."""
+    if isinstance(out, torch.Tensor) and out.is_cuda:
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(out.device))
+        return event
+    return _Completed()
+
+
+class _Dispatch:
+    """One predictor call covering k queued frames."""
+
+    __slots__ = ("out", "done", "k", "realized", "t_done")
+
+    def __init__(self, out, k):
+        self.out = out          # (k, 2, h, w) tensor; None once realized
+        self.done = _completion(out)
+        self.k = k
+        self.realized = None    # np.ndarray once read back
+        self.t_done = None      # host time of realization
+
+
+class StreamingEngine:
+    """Video-rate streaming harness for dual-GelSlim frames, with adaptive
+    micro-batching: frames that arrive while the device is busy coalesce
+    into one dispatch.
+
+    submit(frame) enqueues and returns without waiting for the device;
+    results come back with get()/drain() in FIFO order, as numpy arrays.
+    Dispatch policy: at most ``max_dispatches`` predictor calls are
+    outstanding at once (slots are freed by non-blocking completion checks,
+    a ``torch.cuda.Event`` recorded after each dispatch, or by the consumer
+    realizing results). When the device is idle a lone frame dispatches at
+    once; when all slots are busy, arriving frames queue on the host and
+    the next free slot dispatches them together as one micro-batch of up to
+    ``microbatch`` frames (power-of-2 bucketed), one
+    ``predict_dual_frames_multi`` call, so a coalesced dispatch costs one
+    call's host overhead. The engine takes any predictor with
+    ``predict_dual_frames_multi``: ``Predictor``, ``QuantizedPredictor``.
+
+    Upload: for a predictor on CUDA each host frame is staged into a fresh
+    pinned host tensor and copied to the card with ``non_blocking=True`` at
+    submit, so submit does not wait for the dispatch in flight (a pageable
+    copy would synchronize the stream). A fresh tensor per frame: torch's
+    caching host allocator keeps a pinned block until its copy has landed.
+
+    Queue semantics on the FIFO of unclaimed frames:
+    - Bounded depth (max_inflight, counted in frames): a sensor outrunning
+      the device cannot grow host or device queues without bound.
+    - Drop policy when the queue is full at submit:
+        'oldest' (default): discard the oldest unclaimed frame and admit
+          the new one, the live-view behavior. A dropped frame that was
+          already dispatched is not cancelled, only its result discarded.
+        'newest': refuse the new frame (submit returns False), the
+          lossless-logging behavior.
+        'block': wait for the oldest outstanding dispatch's device work to
+          finish, then admit. Nothing is dropped; if the consumer never
+          drains, the unclaimed-result queue grows without bound, and the
+          engine warns (once) past ``results_warn`` unclaimed frames.
+    - update_base(frame): swap the base frame between submissions.
+      Queued but undispatched frames are flushed with the old base first.
+    - flush(): dispatch everything queued without waiting for free slots.
+    - stats(): throughput, latency and dispatch-size self-report.
+
+    ``chip_smoke.py`` measures the engine's frames/s, latency and dispatch
+    size on the card at micro-batches 1, 2 and 4 (PERF.md)."""
+
+    def __init__(
+        self,
+        predictor,
+        output_size: Tuple[int, int],
+        base_frame=None,
+        *,
+        max_inflight: int = 4,
+        drop_policy: str = "oldest",
+        microbatch: int = 4,
+        max_dispatches: int = 2,
+        results_warn: int = 64,
+    ):
+        if drop_policy not in ("oldest", "newest", "block"):
+            raise ValueError(f"drop_policy {drop_policy!r}: want oldest|newest|block")
+        if max_inflight < 1:
+            raise ValueError("max_inflight must be >= 1")
+        if microbatch < 1:
+            raise ValueError("microbatch must be >= 1")
+        if max_dispatches < 1:
+            raise ValueError("max_dispatches must be >= 1")
+        self.predictor = predictor
+        device = getattr(predictor, "device", None)
+        self._cuda = device if device is not None and torch.device(device).type == "cuda" else None
+        self.output_size = tuple(output_size)
+        self.base_frame = None if base_frame is None else self._stage(base_frame)
+        self.max_inflight = int(max_inflight)
+        self.drop_policy = drop_policy
+        self.microbatch = int(microbatch)
+        self.max_dispatches = int(max_dispatches)
+        self.results_warn = int(results_warn)
+        # FIFO of unclaimed frames: [frame|None, _Dispatch|None, row, t_submit]
+        self._queue = []
+        self._outstanding = []  # dispatches whose device work may still run
+        self._warned = False
+        self._submitted = 0
+        self._dropped = 0
+        self._completed = 0
+        self._n_dispatches = 0
+        self._frames_dispatched = 0
+        self._latency_sum = 0.0
+        self._first_submit_time = None
+        self._last_complete_time = None
+
+    # -- dispatch machinery ------------------------------------------------
+    def _stage(self, x) -> torch.Tensor:
+        """A host frame as a float32 tensor; on the predictor's card when
+        that is CUDA, through a fresh pinned buffer and a copy that does not
+        block the host."""
+        t = torch.as_tensor(x, dtype=torch.float32)
+        if self._cuda is None or t.is_cuda:
+            return t
+        pinned = torch.empty(t.shape, dtype=torch.float32, pin_memory=True)
+        pinned.copy_(t)
+        return pinned.to(self._cuda, non_blocking=True)
+
+    def _pending_items(self):
+        return [it for it in self._queue if it[1] is None]
+
+    def _dispatch(self, items) -> None:
+        frames = [it[0] for it in items]
+        out = self.predictor.predict_dual_frames_multi(frames, self.base_frame, self.output_size)
+        d = _Dispatch(out, len(items))
+        for row, it in enumerate(items):
+            it[0] = None
+            it[1] = d
+            it[2] = row
+        self._outstanding.append(d)
+        self._n_dispatches += 1
+        self._frames_dispatched += len(items)
+
+    def _dispatch_pending(self, bounded: bool) -> None:
+        """Dispatch queued frames in power-of-2 micro-batches: while a slot
+        is free, or all of them when not ``bounded``."""
+        while not bounded or len(self._outstanding) < self.max_dispatches:
+            pend = self._pending_items()
+            if not pend:
+                return
+            k = min(len(pend), self.microbatch)
+            self._dispatch(pend[: 1 << (k.bit_length() - 1)])
+
+    def _pump(self) -> None:
+        # free slots held by dispatches whose device work finished (in
+        # order on one stream; query() does not block)
+        while self._outstanding and (
+            self._outstanding[0].realized is not None or self._outstanding[0].done.query()
+        ):
+            self._outstanding.pop(0)
+        self._dispatch_pending(bounded=True)
+
+    def _realize(self, d: _Dispatch) -> np.ndarray:
+        if d.realized is None:
+            d.realized = d.out.cpu().numpy()
+            d.out = None
+            d.t_done = time.perf_counter()
+        return d.realized
+
+    def _claim(self, item) -> np.ndarray:
+        d, row = item[1], item[2]
+        arr = self._realize(d)
+        self._completed += 1
+        self._latency_sum += d.t_done - item[3]
+        if self._last_complete_time is None or d.t_done > self._last_complete_time:
+            self._last_complete_time = d.t_done
+        return arr[row:row + 1]
+
+    # -- public API --------------------------------------------------------
+    def update_base(self, base_frame) -> None:
+        self.flush()  # queued frames keep the base they were submitted under
+        self.base_frame = None if base_frame is None else self._stage(base_frame)
+
+    def flush(self) -> None:
+        """Dispatch every queued but undispatched frame now, ignoring the
+        dispatch-slot bound (a bounded burst: the queue itself is bounded)."""
+        self._dispatch_pending(bounded=False)
+
+    def submit(self, frame) -> bool:
+        """Enqueue one dual frame, (6, H, W) or (1, 6, H, W); returns True
+        if admitted (False only under drop_policy='newest' with a full
+        queue)."""
+        if len(self._queue) >= self.max_inflight:
+            if self.drop_policy == "newest":
+                self._dropped += 1
+                return False
+            if self.drop_policy == "oldest":
+                self._queue.pop(0)  # its device work, if any, is not cancelled
+                self._dropped += 1
+            else:  # block: bound device work; the result queue may grow
+                if self._outstanding:
+                    d = self._outstanding.pop(0)
+                    if d.out is not None:  # not already realized by a get()
+                        d.done.synchronize()
+                if not self._warned and len(self._queue) > self.results_warn:
+                    warnings.warn(
+                        f"StreamingEngine(drop_policy='block'): {len(self._queue)} "
+                        "unclaimed results queued: the consumer is not draining; "
+                        "memory grows until get()/drain() is called",
+                        RuntimeWarning,
+                        stacklevel=2,
+                    )
+                    self._warned = True
+        frame = self._stage(frame)
+        if frame.ndim == 3:
+            frame = frame[None]
+        t = time.perf_counter()
+        if self._first_submit_time is None:
+            self._first_submit_time = t
+        self._queue.append([frame, None, None, t])
+        self._submitted += 1
+        self._pump()
+        return True
+
+    def get(self) -> np.ndarray:
+        """Realize and return the oldest unclaimed result (FIFO)."""
+        if not self._queue:
+            raise IndexError("get() on an empty StreamingEngine")
+        if self._queue[0][1] is None:
+            # head still undispatched (slots were held by dropped frames'
+            # work): the consumer asked, so dispatch past the bound
+            self.flush()
+        item = self._queue.pop(0)
+        out = self._claim(item)
+        self._pump()  # realization freed a slot: coalesce what queued up
+        return out
+
+    def drain(self):
+        """Realize and return all unclaimed results, in FIFO order."""
+        self.flush()
+        out = [self._claim(it) for it in self._queue]
+        self._queue.clear()
+        return out
+
+    @property
+    def pending(self) -> int:
+        return len(self._queue)
+
+    def stats(self) -> dict:
+        """Self-reported counters: frames submitted/completed/dropped,
+        dispatch count and mean micro-batch size, mean submit->result
+        latency, and end-to-end throughput over the completed stream."""
+        elapsed = (
+            self._last_complete_time - self._first_submit_time
+            if self._completed and self._first_submit_time is not None
+            else 0.0
+        )
+        return {
+            "submitted": self._submitted,
+            "completed": self._completed,
+            "dropped": self._dropped,
+            "pending": len(self._queue),
+            "dispatches": self._n_dispatches,
+            "mean_dispatch_size": (
+                self._frames_dispatched / self._n_dispatches if self._n_dispatches else None
+            ),
+            "mean_latency_ms": (
+                1e3 * self._latency_sum / self._completed if self._completed else None
+            ),
+            "throughput_fps": (
+                self._completed / elapsed if self._completed and elapsed > 0 else None
+            ),
+        }

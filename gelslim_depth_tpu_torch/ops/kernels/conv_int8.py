@@ -1,12 +1,14 @@
 """int8 x int8 -> int32 convolution with a float32 dequant epilogue, NHWC,
 that can also requantize its output for the next int8 conv.
 
-``conv2d_int8`` launches the hand-written CUDA kernel ``csrc/conv2d_int8.cu``
-for tensors on a CUDA device (the source's header says what it replaces,
-what bounds it and how it is laid out), and computes
-``conv2d_int8_reference``, the same function composed of plain PyTorch ops,
-for tensors on the CPU. There is no fallback from the kernel to the plain
-version: on CUDA it launches or raises.
+``conv2d_int8`` checks its arguments and calls the custom op
+``torch.ops.gelslim.conv2d_int8``, whose CUDA implementation launches the
+hand-written kernel ``csrc/conv2d_int8.cu`` (the source's header says what
+it replaces, what bounds it and how it is laid out) and whose CPU
+implementation computes ``conv2d_int8_reference``, the same function
+composed of plain PyTorch ops. The op's device keys pick the route, one per
+device: there is no fallback from the kernel to the plain version, on CUDA
+it launches or raises. As an op it is traced by ``torch.export``.
 
 The plain twin runs the convolution in float64, where every int8 x int8 sum
 of the U-Net is exact (|acc| <= 3*3*1024*127^2 ~ 1.5e8, far below 2^53; float32
@@ -23,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -140,8 +142,15 @@ def _check(qx, w, pad, scale, ep: Epilogue, qx2, offset):
     s = ep.shuffle
     if s > 1 and ((kh, kw, pad) != (1, 1, 0) or cout % (s * s)):
         raise ValueError(f"shuffle {s} needs a 1x1 conv, pad 0, and Cout a multiple of {s * s}")
-    if s > 1:
-        return (n, s * ho, s * wo, cout // (s * s))
+    return _out_shape(qx, w, pad, s)
+
+
+def _out_shape(qx, w, pad: int, shuffle: int):
+    n, h, wd, _ = qx.shape
+    cout, kh, kw, _ = w.shape
+    ho, wo = h + 2 * pad - kh + 1, wd + 2 * pad - kw + 1
+    if shuffle > 1:
+        return (n, shuffle * ho, shuffle * wo, cout // (shuffle * shuffle))
     return (n, ho, wo, cout)
 
 
@@ -164,35 +173,66 @@ def conv2d_int8(
     for no int8 output; else a tuple of the int8 outputs in ``q_scales``
     order, followed by the float output where ``store_float``.
 
-    On CUDA the outputs are allocated with ``torch.empty`` and the kernel is
-    launched on the current stream without synchronizing; each launch adds
-    one to ``conv2d_int8.launches`` and to its mainloop's count in
+    The call goes to the custom op ``torch.ops.gelslim.conv2d_int8``, the
+    epilogue flattened into its arguments. On CUDA the op allocates the
+    outputs with ``torch.empty`` and launches the kernel on the current
+    stream without synchronizing; each launch adds one to
+    ``conv2d_int8.launches`` and to its mainloop's count in
     ``conv2d_int8.launches_by_path`` (an empty output launches nothing).
-    CPU tensors go through ``conv2d_int8_reference`` and launch nothing."""
-    out_shape = _check(qx, w, pad, scale, epilogue, qx2, offset)
-    if qx.device.type == "cpu":
-        return conv2d_int8_reference(qx, w, pad=pad, scale=scale, epilogue=epilogue, qx2=qx2, offset=offset)
-    if qx.device.type != "cuda":
-        raise ValueError(f"no kernel for device {qx.device}")
-    tensors = (qx, qx2, w, scale, epilogue.bias, epilogue.bn_mul, epilogue.bn_add, *epilogue.q_scales)
-    if not all(t is None or t.is_contiguous() for t in tensors):
-        raise ValueError("conv2d_int8 takes contiguous tensors")
-
-    qouts = [torch.empty(out_shape, dtype=torch.int8, device=qx.device) for _ in epilogue.q_scales]
-    out = torch.empty(out_shape, dtype=epilogue.out_dtype, device=qx.device) if epilogue.store_float else None
-    outs = (*qouts, out) if out is not None else tuple(qouts)
-    if outs[0].numel() != 0:
-        err, path = launch(_kernel_fn(), qx, w, out, qouts, pad=pad, scale=scale, epilogue=epilogue,
-                           qx2=qx2, offset=offset)
-        if err != 0:
-            raise RuntimeError(f"conv2d_int8 kernel launch failed: CUDA error {err}")
-        conv2d_int8.launches += 1
-        conv2d_int8.launches_by_path[PATHS[path]] += 1
-    return outs if epilogue.q_scales else out
+    On the CPU the op computes ``conv2d_int8_reference`` and launches
+    nothing."""
+    _check(qx, w, pad, scale, epilogue, qx2, offset)
+    ep = epilogue
+    outs = torch.ops.gelslim.conv2d_int8(
+        qx, w, pad, scale, ep.bias, ep.bn_mul, ep.bn_add, ep.act, ep.out_dtype, ep.shuffle,
+        list(ep.q_scales), ep.store_float, qx2, [int(offset[0]), int(offset[1])],
+    )
+    return tuple(outs) if ep.q_scales else outs[0]
 
 
 conv2d_int8.launches = 0
 conv2d_int8.launches_by_path = dict.fromkeys(PATHS, 0)
+
+
+@torch.library.custom_op("gelslim::conv2d_int8", mutates_args=(), device_types="cuda")
+def _op(
+    qx: torch.Tensor, w: torch.Tensor, pad: int, scale: torch.Tensor,
+    bias: Optional[torch.Tensor], bn_mul: Optional[torch.Tensor], bn_add: Optional[torch.Tensor],
+    act: str, out_dtype: torch.dtype, shuffle: int, q_scales: List[torch.Tensor], store_float: bool,
+    qx2: Optional[torch.Tensor], offset: List[int],
+) -> List[torch.Tensor]:
+    """The kernel, on checked CUDA tensors (the public wrapper checks):
+    the int8 outputs in ``q_scales`` order, then the float one."""
+    ep = Epilogue(bias, bn_mul, bn_add, act, out_dtype, shuffle, tuple(q_scales), store_float)
+    tensors = (qx, qx2, w, scale, bias, bn_mul, bn_add, *q_scales)
+    if not all(t is None or t.is_contiguous() for t in tensors):
+        raise ValueError("conv2d_int8 takes contiguous tensors")
+    out_shape = _out_shape(qx, w, pad, shuffle)
+    qouts = [torch.empty(out_shape, dtype=torch.int8, device=qx.device) for _ in q_scales]
+    out = torch.empty(out_shape, dtype=out_dtype, device=qx.device) if store_float else None
+    outs = [*qouts, out] if store_float else qouts
+    if outs[0].numel():
+        err, path = launch(_kernel_fn(), qx, w, out, qouts, pad=pad, scale=scale, epilogue=ep,
+                           qx2=qx2, offset=tuple(offset))
+        if err != 0:
+            raise RuntimeError(f"conv2d_int8 kernel launch failed: CUDA error {err}")
+        conv2d_int8.launches += 1
+        conv2d_int8.launches_by_path[PATHS[path]] += 1
+    return outs
+
+
+@_op.register_kernel("cpu")
+def _op_cpu(qx, w, pad, scale, bias, bn_mul, bn_add, act, out_dtype, shuffle, q_scales, store_float, qx2, offset):
+    ep = Epilogue(bias, bn_mul, bn_add, act, out_dtype, shuffle, tuple(q_scales), store_float)
+    outs = conv2d_int8_reference(qx, w, pad=pad, scale=scale, epilogue=ep, qx2=qx2, offset=tuple(offset))
+    return list(outs) if q_scales else [outs]
+
+
+@_op.register_fake
+def _op_fake(qx, w, pad, scale, bias, bn_mul, bn_add, act, out_dtype, shuffle, q_scales, store_float, qx2, offset):
+    shape = _out_shape(qx, w, pad, shuffle)
+    qouts = [qx.new_empty(shape, dtype=torch.int8) for _ in q_scales]
+    return [*qouts, qx.new_empty(shape, dtype=out_dtype)] if store_float else qouts
 
 
 def conv2d_int8_accumulate(qx: torch.Tensor, w: torch.Tensor, pad: int) -> torch.Tensor:

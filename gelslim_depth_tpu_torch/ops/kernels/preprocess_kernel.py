@@ -1,12 +1,16 @@
 """Fused dual-finger preprocess: difference image -> area resize ->
 per-channel normalize, over (N, 6, H, W) float32 frames.
 
-``fused_preprocess_dual`` launches the hand-written CUDA kernel
-``csrc/fused_preprocess_dual.cu`` for tensors on a CUDA device (the source's
-header says what it replaces, what bounds it and how it is laid out), and
-computes ``fused_preprocess_dual_reference``, the same function composed of
-plain PyTorch ops, for tensors on the CPU. There is no fallback from the
-kernel to the plain version: on CUDA it launches or raises.
+``fused_preprocess_dual`` checks its arguments and calls the custom op
+``torch.ops.gelslim.fused_preprocess_dual``, whose CUDA implementation
+launches the hand-written kernel ``csrc/fused_preprocess_dual.cu`` (the
+source's header says what it replaces, what bounds it and how it is laid
+out) and whose CPU implementation computes
+``fused_preprocess_dual_reference``, the same function composed of plain
+PyTorch ops. The op's device keys pick the route, one per device: there is
+no fallback from the kernel to the plain version, on CUDA it launches or
+raises. As an op it is traced by ``torch.export`` (its fake implementation
+allocates the output's shape and nothing else).
 
 The kernel's plan is built here, on the host, once per shape:
 ``window_table`` gives each output row's or column's window and weight, and
@@ -21,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -161,16 +165,17 @@ def fused_preprocess_dual(
     out_size: Tuple[int, int],
     use_diff: bool = True,
 ) -> torch.Tensor:
-    """(N, 6, H, W) + base -> (2N, 3, h, w) normalized finger images.
+    """(N, 6, H, W) + base -> (2N, 3, h, w) normalized finger images,
+    through the custom op ``torch.ops.gelslim.fused_preprocess_dual``.
 
-    On CUDA the output is allocated with ``torch.empty`` and the kernel is
-    launched on the current stream without synchronizing; each launch adds
-    one to ``fused_preprocess_dual.launches`` (an empty batch launches
-    nothing). CPU tensors go through
-    ``fused_preprocess_dual_reference`` and launch nothing."""
+    On CUDA the op allocates the output with ``torch.empty`` and launches
+    the kernel on the current stream without synchronizing; each launch
+    adds one to ``fused_preprocess_dual.launches`` (an empty batch launches
+    nothing). On the CPU the op computes
+    ``fused_preprocess_dual_reference`` and launches nothing."""
     if frames.ndim != 4 or frames.shape[1] != 6:
         raise ValueError(f"frames must be (N, 6, H, W), got {tuple(frames.shape)}")
-    n, _, h_in, w_in = frames.shape
+    _, _, h_in, w_in = frames.shape
     h_out, w_out = int(out_size[0]), int(out_size[1])
     if h_out < 1 or w_out < 1:
         raise ValueError(f"out_size must be positive, got {out_size}")
@@ -184,17 +189,22 @@ def fused_preprocess_dual(
             )
         if base.dtype != torch.float32 or base.device != frames.device:
             raise TypeError("base must be float32 on the frames' device")
-    mult, add = _coeffs(mult, "mult"), _coeffs(add, "add")
+    return torch.ops.gelslim.fused_preprocess_dual(
+        frames, base if use_diff else None, list(_coeffs(mult, "mult")), list(_coeffs(add, "add")),
+        h_out, w_out, bool(use_diff),
+    )
 
-    if frames.device.type == "cpu":
-        return fused_preprocess_dual_reference(
-            frames, base, mult, add, out_size=(h_out, w_out), use_diff=use_diff
-        )
-    if frames.device.type != "cuda":
-        raise ValueError(f"no kernel for device {frames.device}")
+
+fused_preprocess_dual.launches = 0
+
+
+@torch.library.custom_op("gelslim::fused_preprocess_dual", mutates_args=(), device_types="cuda")
+def _op(frames: torch.Tensor, base: Optional[torch.Tensor], mult: List[float], add: List[float],
+        h_out: int, w_out: int, use_diff: bool) -> torch.Tensor:
+    """The kernel, on checked CUDA tensors (the public wrapper checks)."""
     if not frames.is_contiguous() or (use_diff and not base.is_contiguous()):
         raise ValueError("frames and base must be contiguous")
-
+    n = frames.shape[0]
     out = torch.empty((2 * n, 3, h_out, w_out), dtype=torch.float32, device=frames.device)
     if n == 0:
         return out
@@ -205,7 +215,14 @@ def fused_preprocess_dual(
     return out
 
 
-fused_preprocess_dual.launches = 0
+@_op.register_kernel("cpu")
+def _op_cpu(frames, base, mult, add, h_out, w_out, use_diff):
+    return fused_preprocess_dual_reference(frames, base, mult, add, out_size=(h_out, w_out), use_diff=use_diff)
+
+
+@_op.register_fake
+def _op_fake(frames, base, mult, add, h_out, w_out, use_diff):
+    return frames.new_empty((2 * frames.shape[0], 3, h_out, w_out))
 
 
 def fused_preprocess_dual_reference(frames, base, mult, add, *, out_size, use_diff=True):

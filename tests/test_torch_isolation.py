@@ -74,6 +74,23 @@ def test_port_runs_with_jax_blocked(tmp_path):
         assert hist2["train_loss"][0] == hist["train_loss"][0] and len(hist2["train_loss"]) == 2
         served = Predictor.from_checkpoint("run/weights", device="cpu")
         assert torch.isfinite(served.predict_dual_frames(calib, frames[0], (16, 22))).all()
+        # the serving surface: the engine, export, entry and the CLI
+        from gelslim_depth_tpu_torch import StreamingEngine, cli
+        from gelslim_depth_tpu_torch.entry import entry, flagship_config
+        from gelslim_depth_tpu_torch.export import ExportedPredictor, export_predictor
+        eng = StreamingEngine(qpred, (16, 22), base_frame=frames[0])
+        for f in calib:
+            eng.submit(f)
+        assert [o.shape for o in eng.drain()] == [(1, 2, 16, 22)] * 2
+        export_predictor(qpred, (16, 22), path="q.gsx", batch_sizes=(2,), frame_size=(16, 22))
+        assert torch.equal(ExportedPredictor.load("q.gsx")(calib, frames[0]), out)
+        assert flagship_config().CNN_dimensions == (64, 128, 256, 512, 1024) and callable(entry)
+        import runpy
+        sys.argv = ["gelslim_depth_tpu_torch", "--help"]
+        try:
+            runpy.run_module("gelslim_depth_tpu_torch", run_name="__main__", alter_sys=True)
+        except SystemExit as e:
+            assert e.code == 0, e.code
         assert not any(m.split(".")[0] in Blocker.BLOCKED for m in sys.modules)
         print("NO-JAX-OK")
         """
