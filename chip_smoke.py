@@ -16,11 +16,17 @@ predictors, and ``export_predictor`` -> ``ExportedPredictor`` of the int8,
 bf16 and f32 predictors. Then training: float32 train steps on the card
 against the same steps on the CPU, a bfloat16 loss that falls, and
 ``Trainer.fit`` on the synthetic set, served from its best checkpoint,
-resumed, and exported by the CLI's ``export --check``. Prints the card, a
-``{"kernels": [...]}`` line, an end-to-end line, an engine and export line,
-a training line and, last, ``{"ok": true, "device": {...}}``. Any failed
-check exits non-zero; with no CUDA device it exits non-zero before any
-result. Imports nothing of JAX or of the JAX package.
+resumed, and exported by the CLI's ``export --check``. Then mesh->depth
+ground truth: ``make_mesh_contact_object`` renders 256 grasps each of a
+ridged plate and a sphere (1e5 surface points, 320x427) on the card, 16 of
+them are held against the CPU path and the host C++ renderer, and the
+render is timed. Last, the data-prep and training commands on the card:
+``generate-depth``, ``train`` (1 epoch, flagship dims, bf16) and ``test``.
+Prints the card, a ``{"kernels": [...]}`` line, an end-to-end line, an
+engine and export line, a training line, a meshgen and CLI line and, last,
+``{"ok": true, "device": {...}}``. Any failed check exits non-zero; with no
+CUDA device it exits non-zero before any result. Imports nothing of JAX or
+of the JAX package.
 """
 
 import importlib.util
@@ -40,10 +46,24 @@ import torch
 import torch.nn.functional as F
 
 from gelslim_depth_tpu_torch import GelslimConfig, Predictor, StreamingEngine, Trainer, bake_dataset, cli
-from gelslim_depth_tpu_torch.data.synthetic import make_synthetic_object
+from gelslim_depth_tpu_torch.data.pt_io import load_pt
+from gelslim_depth_tpu_torch.data.synthetic import (
+    make_mesh_contact_object,
+    make_synthetic_object,
+    write_synthetic_dataset_tree,
+)
 from gelslim_depth_tpu_torch.entry import entry, flagship_config
 from gelslim_depth_tpu_torch.export import ExportedPredictor, export_predictor
 from gelslim_depth_tpu_torch.inference import fused_predict_dual
+from gelslim_depth_tpu_torch.meshgen import (
+    depth_render,
+    fixtures,
+    plane_spec,
+    render_depth_batch,
+    sample_surface_points,
+    save_stl_binary,
+)
+from gelslim_depth_tpu_torch.meshgen.native_render import render_depth_batch_native
 from gelslim_depth_tpu_torch.models.unet import unet_state_shapes
 from gelslim_depth_tpu_torch.models import quantize as quantize_module
 from gelslim_depth_tpu_torch.models import unet as unet_module
@@ -78,6 +98,10 @@ CARD_PEAKS = (
     ("H100", 3.35e12, 67e12, 1979e12, 989e12),  # SXM
 )
 TRAIN_BATCH = 16  # GelslimConfig.batch_size, the reference's
+MESH_POINTS = 100_000  # generate-depth's --pc_sampling default
+MESH_POSES = 256
+MESH_CHECKED = 16  # poses held against the CPU path and the host renderer
+MESH_MAX_DEPTH = 1.9  # make_mesh_contact_object's max_depth_mm
 
 
 # substrings of device op names -> the layer they belong to, for the
@@ -1188,6 +1212,179 @@ def measure_training(ucfg, train, peaks):
     return out
 
 
+def sphere_triangles(radius: float = 8.0, n_lat: int = 96, n_lon: int = 192) -> np.ndarray:
+    """A UV sphere in mm as (T, 3, 3) float32 triangles (those at the poles
+    have no area, so surface sampling never picks them)."""
+    th = np.linspace(0.0, np.pi, n_lat + 1)[:, None]
+    ph = np.linspace(0.0, 2.0 * np.pi, n_lon + 1)[None, :]
+    v = radius * np.stack([np.sin(th) * np.cos(ph), np.sin(th) * np.sin(ph), np.cos(th) * np.ones_like(ph)], -1)
+    a, b, c, d = v[:-1, :-1], v[1:, :-1], v[1:, 1:], v[:-1, 1:]
+    return np.concatenate([np.stack([a, b, c], -2), np.stack([a, c, d], -2)]).reshape(-1, 3, 3).astype(np.float32)
+
+
+def depth_bar(got, want):
+    """(RMSE in mm, share of pixels off by more than 1e-4 mm) of two depth
+    stacks; the bar the JAX package holds its two renderers to is RMSE <
+    0.005 mm and a share below 1e-4."""
+    diff = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    return float(np.sqrt((diff ** 2).mean())), float((diff > 1e-4).mean())
+
+
+def check_depth(d, tag):
+    check(bool(np.isfinite(d).all()) and float(d.max()) <= 1e-6,
+          f"{tag}: depth not finite and <= 1e-6: [{d.min()}, {d.max()}]")
+
+
+def drive_meshgen(workdir):
+    """Mesh->depth ground truth at full width on the card. For a ridged
+    fixture plate and a sphere (mm, pc_scale 1): make_mesh_contact_object
+    draws and renders 256 grasps (translations within 2 mm, any angle,
+    widths for 0.3-1.5 mm of contact) from 1e5 surface points at 320x427,
+    plane +y+z, 6 hole-fill steps; render_depth_batch renders its poses
+    again, bit for bit; 16 of them, for both lr_flip values, are held
+    against the CPU path and the host C++ renderer. Then the 256-pose
+    render is timed: samples/s on the host clock with the copy back, and
+    by device busy time; device ms of the scatter-min and the rest in that
+    trace, and of the hole fill alone on the 256 poses' grids; the host
+    time of the copy back alone; the pose chunk and peak memory. Returns
+    the record."""
+    spec = plane_spec("+y+z")
+    kw = dict(spec=spec, image_size=FRAME, mm_per_pixel=12.0 / FRAME[0], fill_iters=6)
+    meshes = {"ridged plate": fixtures.heightfield_plate_triangles(fixtures.ridged_height_fn()),
+              "sphere": sphere_triangles()}
+    out = {"points": MESH_POINTS, "poses": MESH_POSES, "image": FRAME,
+           "pose_chunk": depth_render.POINTS_PER_CHUNK // MESH_POINTS}
+    for seed, (name, tri) in enumerate(meshes.items()):
+        path = os.path.join(workdir, f"mesh{seed}.stl")
+        save_stl_binary(path, tri)
+        t0 = time.perf_counter()
+        obj = make_mesh_contact_object(np.random.RandomState(seed), path, MESH_POSES, pc_scale=1.0,
+                                       image_size=FRAME, n_points=MESH_POINTS, max_depth_mm=MESH_MAX_DEPTH,
+                                       device="cuda")
+        obj_s = time.perf_counter() - t0
+        # the object's cloud: its first draw seeds the surface sampling
+        pts = sample_surface_points(tri, MESH_POINTS, seed=int(np.random.RandomState(seed).randint(2 ** 31)))
+        poses, widths = obj["in_hand_pose"], obj["grasp_widths"]
+
+        def render(n=MESH_POSES, device="cuda", **k):
+            return render_depth_batch(pts, poses[:n], widths[:n], device=device, **kw, **k)
+
+        depth = render().cpu().numpy()
+        check(depth.shape == (MESH_POSES, 2, *FRAME), f"meshgen {name}: shape {depth.shape}")
+        check_depth(depth, f"meshgen {name}")
+        check(float(depth.min()) < -0.3, f"meshgen {name}: no grasp presses into the mesh ({depth.min()})")
+        check(np.array_equal(np.maximum(depth, np.float32(-MESH_MAX_DEPTH)), obj["depth_image"]),
+              f"meshgen {name}: make_mesh_contact_object's depth is not render_depth_batch's on its poses")
+
+        rec = out[name] = {"make_mesh_contact_object_s": obj_s,
+                           "depth_range_mm": [float(depth.min()), float(depth.max())]}
+        for lr_flip in (False, True):
+            card = render(MESH_CHECKED, lr_flip=lr_flip).cpu().numpy()
+            cpu = render(MESH_CHECKED, "cpu", lr_flip=lr_flip).numpy()
+            native = render_depth_batch_native(pts, poses[:MESH_CHECKED], widths[:MESH_CHECKED],
+                                               lr_flip=lr_flip, **kw)
+            for ref_name, ref in (("card", card), ("cpu", cpu), ("native", native)):
+                check_depth(ref, f"meshgen {name} {ref_name} lr_flip={lr_flip}")
+            for ref_name, ref in (("cpu", cpu), ("native", native)):
+                rmse, share = depth_bar(card, ref)
+                rec[f"card_vs_{ref_name}_lr_flip_{lr_flip}"] = {"rmse_mm": rmse, "share_off": share}
+                print(f"meshgen {name}, {MESH_CHECKED} poses, lr_flip={lr_flip}: card vs {ref_name} RMSE "
+                      f"{rmse:.3e} mm, share of pixels off by > 1e-4 mm {share:.3e}", flush=True)
+                check(rmse < 0.005 and share < 1e-4,
+                      f"meshgen {name}: card vs {ref_name} (lr_flip={lr_flip}) RMSE {rmse}, share {share}")
+
+        rec["host_ms"] = host_ms(lambda: render().cpu(), reps=5, warmup=1)
+        rec["samples_per_s_host"] = 1e3 * MESH_POSES / rec["host_ms"]
+        on_card = render()
+        rec["copy_back_host_ms"] = host_ms(lambda: on_card.cpu(), reps=5, warmup=1)
+        del on_card
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        render()
+        torch.cuda.synchronize()
+        rec["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec["render_memory_gib"] = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+        cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+        grid, _ = depth_render._splat(cuda(pts), *(cuda(poses[:, i]) for i in range(3)), cuda(widths), spec,
+                                      FRAME, kw["mm_per_pixel"], False)
+        rec["hole_fill_device_ms_alone"] = device_ms(lambda: depth_render._fill_holes(grid, 6), calls=5)
+        del grid
+        prof = device_profile(render, calls=3, op_keys={"scatter-min": ("scatter",)}, other="rest")
+        if prof is None:
+            print(f"meshgen {name}: the trace holds no device events; device time not measured", flush=True)
+            rec["device_profile"] = None
+        else:
+            busy, idle, ops, _, ms = prof
+            rec["device_profile"] = {
+                "busy_ms": busy, "idle_share": idle, "device_ops": ops,
+                "samples_per_s_device": 1e3 * MESH_POSES / busy,
+                "scatter_ms": ms["scatter-min"],
+                "hole_fill_ms": rec["hole_fill_device_ms_alone"],
+                "rest_ms": busy - ms["scatter-min"] - rec["hole_fill_device_ms_alone"],
+            }
+        dp = rec["device_profile"] or {}
+        print(f"meshgen {name}: {MESH_POSES} poses x {MESH_POINTS} points at {FRAME[0]}x{FRAME[1]}, pose chunk "
+              f"{out['pose_chunk']}: host {rec['host_ms']:.3f} ms with the copy back "
+              f"({rec['samples_per_s_host']:.1f} samples/s); device busy {dp.get('busy_ms', float('nan')):.3f} ms "
+              f"({dp.get('samples_per_s_device', float('nan')):.1f} samples/s), idle share "
+              f"{dp.get('idle_share', float('nan')):.3f}, {dp.get('device_ops', float('nan')):.1f} device ops; the copy "
+              f"back alone {rec['copy_back_host_ms']:.3f} ms; device "
+              f"ms: scatter-min {dp.get('scatter_ms', float('nan')):.3f}, hole fill (alone) "
+              f"{rec['hole_fill_device_ms_alone']:.3f}, rest {dp.get('rest_ms', float('nan')):.3f}; "
+              f"max_memory_allocated {rec['max_memory_allocated_gib']:.2f} GiB "
+              f"({rec['render_memory_gib']:.2f} for the render); make_mesh_contact_object {obj_s:.2f} s",
+              flush=True)
+    return out
+
+
+def drive_cli_data_prep(workdir):
+    """The data-prep and training commands on the card, through the CLI,
+    on a small tree: write_synthetic_dataset_tree's 320x427 objects (8 dual
+    frames a split and object) with fixture plates (meters) as their
+    meshes; generate-depth with no gpu argument (cuda) on each split; train
+    for 1 epoch at the flagship dims, bf16, on 48 finger samples; test on
+    the weights it wrote. Each must return 0. Returns the record."""
+    root = os.path.join(workdir, "data")
+    names = ("plate_ridged", "plate_bumps")
+    write_synthetic_dataset_tree(root, object_names=names, n_per_object=8, image_size=FRAME, seed=0)
+    mesh_dir = os.path.join(workdir, "mesh")
+    os.makedirs(mesh_dir)
+    for name, height in zip(names, (fixtures.ridged_height_fn(), fixtures.bumps_height_fn())):
+        save_stl_binary(os.path.join(mesh_dir, f"{name}.stl"), fixtures.heightfield_plate_triangles(height) / 1000.0)
+    with open(os.path.join(root, "grasp_widths.txt"), "w") as f:
+        f.write(f"{names[0]}: 12.0\n{names[1]}: 12.5\n")
+    rec = {}
+    t0 = time.perf_counter()
+    for sub in ("train_data", "validation_data", "test_data"):
+        rc = cli.main(["generate-depth", "--mesh_dir", mesh_dir, "--dataset_dir", os.path.join(root, sub),
+                       "--grasp_widths_file", os.path.join(root, "grasp_widths.txt"),
+                       "--image_size", *map(str, FRAME)])
+        check(rc == 0, f"cli generate-depth {sub}: rc {rc}")
+    rec["generate_depth_s"] = time.perf_counter() - t0
+    depth = load_pt(os.path.join(root, "train_data", f"{names[0]}_train.pt"))["depth_image"]
+    check(tuple(depth.shape) == (8, 2, *FRAME), f"cli generate-depth: depth {tuple(depth.shape)}")
+    check_depth(depth.numpy(), "cli generate-depth")
+    check(float(depth.min()) < -0.3, f"cli generate-depth: no contact ({depth.min()})")
+
+    out_dir = os.path.join(workdir, "train_output")
+    t0 = time.perf_counter()
+    rc = cli.main(["train", "cli_flagship", "--data_path", root, "--output_dir", out_dir, "--use_difference_image",
+                   "--bf16", "--max_epochs", "1"])
+    rec["train_s"] = time.perf_counter() - t0
+    check(rc == 0, f"cli train: rc {rc}")
+    wdir = os.path.join(out_dir, "weights")
+    check(os.path.exists(os.path.join(wdir, "cli_flagship.npz")), "cli train wrote no checkpoint")
+    t0 = time.perf_counter()
+    rc = cli.main(["test", "cli_flagship", "test_data", "--data_path", root, "--weights_dir", wdir,
+                   "--output_dir", os.path.join(workdir, "test_output")])
+    rec["test_s"] = time.perf_counter() - t0
+    check(rc == 0, f"cli test: rc {rc}")
+    print(f"cli on the card: generate-depth (3 splits) {rec['generate_depth_s']:.1f} s, train 1 epoch "
+          f"{rec['train_s']:.1f} s, test {rec['test_s']:.1f} s; each rc 0", flush=True)
+    return rec
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
@@ -1226,8 +1423,12 @@ def main() -> None:
     entry_launches = drive_entry()
     engine, engine_launches = drive_engine(pred16, qpred, frames64, base, e2e)
     exported, export_launches = drive_export(cfg, sd, pred16, qpred, frames64, base)
+    with tempfile.TemporaryDirectory() as workdir:
+        reset_launches()
+        meshgen = drive_meshgen(workdir)
+        meshgen_launches = read_launches()
     path_launches = {"main": {"fused_preprocess_dual": launches}, "int8": int8_launches, "entry": entry_launches,
-                     "engine": engine_launches, "export": export_launches}
+                     "engine": engine_launches, "export": export_launches, "meshgen": meshgen_launches}
     t = timings[64]
     sums = {k: sum(v[k] for v in sites.values()) for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bytes_ms", "ops_ms")}
     kernels = [{
@@ -1263,10 +1464,15 @@ def main() -> None:
     training = {"parity": check_train_step_parity(ucfg, train), "bf16_losses": check_bf16_learning(ucfg, train)}
     training["fit"], train_launches = drive_training(train_cfg, train, val, test, base)
     training["timing"] = timing
+    with tempfile.TemporaryDirectory() as workdir:
+        reset_launches()
+        cli_run = drive_cli_data_prep(workdir)
+        cli_launches = read_launches()
     print(json.dumps({"end_to_end": e2e, "kernel_N1": timings[1], "conv2d_int8_sites_N64": sites,
                       "launches_by_path": path_launches}))
     print(json.dumps({"engine": engine, "export": exported}))
     print(json.dumps({"training": training, "training_path_launches": train_launches}))
+    print(json.dumps({"meshgen": meshgen, "cli_data_prep": cli_run, "cli_data_prep_launches": cli_launches}))
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

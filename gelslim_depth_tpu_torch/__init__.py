@@ -7,12 +7,13 @@ diff + resize + normalize front end runs as a hand-written CUDA kernel,
 int8 post-training-quantized serving, whose quantized convs run as a
 second one, and single-device training: the dataset bake, the train-mode
 U-Net, the Adam + EMA train step, checkpoints and resume, and the
-``Trainer``; and the serving surface: the ``StreamingEngine``, ``entry()``,
+``Trainer``; the serving surface: the ``StreamingEngine``, ``entry()``,
 export to a ``.gsx`` artifact of ``torch.export`` programs in which both
-kernels are ``torch.library`` custom ops, and the CLI's ``quantize``,
-``export`` and ``test`` commands (``python -m gelslim_depth_tpu_torch``).
-The package imports torch and numpy, never JAX or
-gelslim_depth_tpu.
+kernels are ``torch.library`` custom ops; mesh->depth ground truth
+(``meshgen``: the renderer on the card, a host C++ copy, the dataset
+generator); and the CLI's seven commands (``python -m
+gelslim_depth_tpu_torch``). The package imports torch and numpy, never JAX
+or gelslim_depth_tpu.
 """
 
 from gelslim_depth_tpu_torch.config import GelslimConfig

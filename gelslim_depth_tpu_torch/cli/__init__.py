@@ -1,24 +1,30 @@
 """Command-line layer of the PyTorch port, one dispatcher over the
-reference's entry points and the serving additions:
+reference's five entry points and the serving additions:
 
+    python -m gelslim_depth_tpu_torch train <weights_name> [gpu] [flags...]
+    python -m gelslim_depth_tpu_torch test <weights_name> [gpu] <sub_dir> [objects...]
+    python -m gelslim_depth_tpu_torch split-data [gpu] [flags...]
+    python -m gelslim_depth_tpu_torch generate-depth [gpu] [flags...]
+    python -m gelslim_depth_tpu_torch view <sub_dir> <data_name> [flags...]
     python -m gelslim_depth_tpu_torch quantize <weights_name> [gpu] [flags...]  # int8 PTQ
     python -m gelslim_depth_tpu_torch export <weights_name> [gpu] [flags...]    # .gsx artifact
-    python -m gelslim_depth_tpu_torch test <weights_name> [gpu] <sub_dir> [objects...]
-
-Not ported yet (the JAX package's ``python -m gelslim_depth_tpu`` runs them):
-train, split-data, generate-depth, view.
 
 The positional ``gpu`` argument keeps the reference commands' meaning
 (ref train_unet.py:58): 'cpu' runs on the CPU, an ordinal n on cuda:n, and
-without it the command runs on cuda.
+without it the command runs on cuda. split-data and view run on the host.
 """
 
+import importlib
 import os
 import re
 import sys
 
-COMMANDS = ("quantize", "export", "test")
-NOT_PORTED = ("train", "split-data", "generate-depth", "view")
+# command -> its module under gelslim_depth_tpu_torch.cli
+COMMANDS = {
+    "train": "train_cmd", "test": "test_cmd", "split-data": "split_cmd",
+    "generate-depth": "generate_depth_cmd", "view": "view_cmd",
+    "quantize": "quantize_cmd", "export": "export_cmd",
+}
 
 
 def _version() -> str:
@@ -45,17 +51,8 @@ def main(argv=None):
         print(_version())
         return 0
     cmd, rest = argv[0], argv[1:]
-    if cmd == "quantize":
-        from gelslim_depth_tpu_torch.cli.quantize_cmd import run
-    elif cmd == "export":
-        from gelslim_depth_tpu_torch.cli.export_cmd import run
-    elif cmd == "test":
-        from gelslim_depth_tpu_torch.cli.test_cmd import run
-    elif cmd in NOT_PORTED:
-        print(f"command {cmd!r} is not ported to the PyTorch package yet; "
-              f"python -m gelslim_depth_tpu {cmd} runs it", file=sys.stderr)
-        return 2
-    else:
+    if cmd not in COMMANDS:
         print(f"unknown command {cmd!r}\n{__doc__}", file=sys.stderr)
         return 2
-    return run(rest) or 0
+    module = importlib.import_module(f"gelslim_depth_tpu_torch.cli.{COMMANDS[cmd]}")
+    return module.run(rest) or 0

@@ -11,8 +11,8 @@ Generates dicts with the reference's `.pt` schema (README.md:33-44):
 
 Contact is synthesized as smooth Gaussian indentations, so the depth maps
 have structure (zero background, negative blobs) and the tactile images
-respond to the contact. ``make_mesh_contact_object`` (real STL geometry)
-waits for the port of meshgen.
+respond to the contact; ``make_mesh_contact_object`` renders it from real
+STL geometry instead.
 """
 
 from __future__ import annotations
@@ -106,6 +106,81 @@ def make_synthetic_object(
         "depth_image": depth,
         "in_hand_pose": rng.uniform(-0.01, 0.01, (n, 3)).astype(np.float32),
         "grasp_widths": rng.uniform(20, 40, (n,)).astype(np.float32),
+    }
+
+
+def make_mesh_contact_object(
+    rng: np.random.RandomState,
+    mesh_path: str,
+    n: int = 8,
+    *,
+    pc_scale: float = 1000.0,
+    image_size: Tuple[int, int] = (160, 213),
+    image_height_mm: float = 12.0,
+    n_points: int = 100_000,
+    penetration_mm: Tuple[float, float] = (0.3, 1.5),
+    translation_mm: float = 2.0,
+    gelslim_plane: str = "+y+z",
+    max_depth_mm: float = 1.9,
+    noise_std: float = 2.0,
+    device=None,
+) -> Dict[str, np.ndarray]:
+    """Reference-schema object whose depth maps come from REAL geometry.
+
+    Renders `n` random grasps of an actual STL mesh through the package's
+    own GT pipeline (meshgen: area-weighted surface sampling + SE(2) +
+    combined-finger min-splat — the rebuild of ref depth_from_mesh.py:80-231)
+    on `device` (``cuda`` unless it says otherwise), then synthesizes the
+    tactile response from those depth maps with the same per-channel sensor
+    model as `make_synthetic_object`. The result is a corpus with the
+    statistics the product actually sees (line/curve patterns, hex keys,
+    pegs — sharp ridges and flats, not Gaussian blobs).
+
+    Poses are uniform: in-plane translations ±`translation_mm`, angle
+    [0, 2pi). Grasp width is derived per sample so the deepest contact is
+    a draw from `penetration_mm`: the SE(2) transform never moves points
+    along the out-of-plane axis, so the cloud's out-of-plane extent is
+    pose-invariant and width = extent - 2*penetration pins the max
+    per-finger indentation exactly.
+    """
+    from gelslim_depth_tpu_torch.meshgen import load_stl, plane_spec, render_depth_batch, sample_surface_points
+
+    h, w = image_size
+    spec = plane_spec(gelslim_plane)
+    tri = load_stl(mesh_path)
+    pts = sample_surface_points(tri, n_points, seed=int(rng.randint(2**31))) * pc_scale
+    perp = pts[:, spec.perp]
+    extent = float(perp.max() - perp.min())
+
+    pen = rng.uniform(penetration_mm[0], penetration_mm[1], (n,)).astype(np.float32)
+    widths = np.maximum(extent - 2.0 * pen, 0.1).astype(np.float32)
+    t_m = translation_mm / 1000.0  # render_depth_batch takes meters (ref :156)
+    poses = np.stack(
+        [
+            rng.uniform(-t_m, t_m, n),
+            rng.uniform(-t_m, t_m, n),
+            rng.uniform(0.0, 2.0 * np.pi, n),
+        ],
+        axis=1,
+    ).astype(np.float32)
+
+    depth = render_depth_batch(
+        pts, poses, widths, spec=spec, image_size=image_size, mm_per_pixel=image_height_mm / h, device=device,
+    ).cpu().numpy()
+    depth = np.maximum(depth, -max_depth_mm)
+
+    base = _base_frames(rng, n, h, w, jitter=6.0)
+    tactile = _apply_sensor_response(
+        rng, base, depth, max_depth_mm=max_depth_mm, response_power=1.0,
+        noise_std=noise_std,
+    )
+
+    return {
+        "tactile_image": tactile,
+        "base_tactile_image": base.astype(np.float32),
+        "depth_image": depth,
+        "in_hand_pose": poses,
+        "grasp_widths": widths,
     }
 
 

@@ -1,9 +1,11 @@
-"""Build the hand-written CUDA kernels and load them with ctypes.
+"""Build the hand-written CUDA kernels, and the host C++ renderer, and load
+them with ctypes.
 
-Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
-with ``nvcc`` for ``sm_90a`` into ``gelslim_depth_tpu_torch/_build/``, under
-a file name carrying the source's hash, so an edited source is rebuilt and
-an unchanged one is loaded as it is. Nothing is built when the package is
+Each ``csrc/<name>.cu`` or ``csrc/<name>.cpp`` has a plain C interface. At
+first use it is compiled, a ``.cu`` with ``nvcc`` for ``sm_90a`` and a
+``.cpp`` with ``g++``, into ``gelslim_depth_tpu_torch/_build/``, under a
+file name carrying the source's hash, so an edited source is rebuilt and an
+unchanged one is loaded as it is. Nothing is built when the package is
 imported.
 """
 
@@ -25,6 +27,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 
 def _nvcc() -> str:
@@ -37,26 +40,31 @@ def _nvcc() -> str:
 
 
 def _paths(name: str):
-    """(source, library file named by the source's and flags' hash)."""
+    """(source, its flags, library file named by the source's and flags'
+    hash): csrc/<name>.cu, else csrc/<name>.cpp."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
+    flags = NVCC_FLAGS
+    if not os.path.exists(src):
+        src, flags = os.path.join(CSRC_DIR, f"{name}.cpp"), GXX_FLAGS
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
+    return src, flags, os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 
 def build_all(names) -> dict:
-    """Build every csrc/<name>.cu that has no build of its exact source yet,
-    one nvcc process each, all started together; returns {name: library}."""
+    """Build every csrc/<name> source that has no build of its exact source
+    yet, one compiler process each, all started together; returns {name:
+    library}."""
     libs, jobs = {}, []
     for name in names:
-        src, lib = _paths(name)
+        src, flags, lib = _paths(name)
         libs[name] = lib
         if not os.path.exists(lib):
             os.makedirs(BUILD_DIR, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
             proc = subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                [_nvcc() if flags is NVCC_FLAGS else "g++", *flags, "-o", tmp, src],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
             jobs.append((src, lib, tmp, proc))
@@ -66,7 +74,7 @@ def build_all(names) -> dict:
         if proc.returncode == 0:
             os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
         else:
-            failed.append(f"nvcc failed to build {src}:\n{log}")
+            failed.append(f"failed to build {src}:\n{log}")
         if os.path.exists(tmp):
             os.remove(tmp)
     if failed:
@@ -75,11 +83,11 @@ def build_all(names) -> dict:
 
 
 def library_path(name: str) -> str:
-    """Build csrc/<name>.cu unless a build of this exact source exists."""
+    """Build csrc/<name> unless a build of this exact source exists."""
     return build_all([name])[name]
 
 
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
-    """The built csrc/<name>.cu, loaded once per process."""
+    """The built csrc/<name>, loaded once per process."""
     return ctypes.CDLL(library_path(name))

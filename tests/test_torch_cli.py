@@ -182,12 +182,17 @@ def test_gpu_positional(gpu, want):
 
 def test_dispatcher(capsys):
     assert cli_main(["--help"]) == 0
-    assert "quantize" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert all(f"gelslim_depth_tpu_torch {cmd} " in out for cmd in
+               ("train", "test", "split-data", "generate-depth", "view", "quantize", "export"))
+    assert "not ported" not in out
     assert cli_main(["--version"]) == 0
     assert capsys.readouterr().out.strip()
-    for cmd in ("train", "split-data", "generate-depth", "view"):
-        assert cli_main([cmd, "x"]) == 2
-        assert "not ported" in capsys.readouterr().err
+    for cmd in ("train", "test", "split-data", "generate-depth", "view", "quantize", "export"):
+        with pytest.raises(SystemExit) as e:
+            cli_main([cmd, "--help"])
+        assert e.value.code == 0
+        assert capsys.readouterr().out.startswith(f"usage: gelslim-depth-tpu-torch {cmd}")
     assert cli_main(["nope"]) == 2
     with pytest.raises(SystemExit):  # 'tpu' is refused, through argparse
         cli_main(["export", "w", "tpu"])

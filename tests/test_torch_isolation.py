@@ -85,6 +85,16 @@ def test_port_runs_with_jax_blocked(tmp_path):
         export_predictor(qpred, (16, 22), path="q.gsx", batch_sizes=(2,), frame_size=(16, 22))
         assert torch.equal(ExportedPredictor.load("q.gsx")(calib, frames[0]), out)
         assert flagship_config().CNN_dimensions == (64, 128, 256, 512, 1024) and callable(entry)
+        # meshgen and the data-prep and train commands
+        from gelslim_depth_tpu_torch.cli import generate_depth_cmd, split_cmd, train_cmd, view_cmd
+        from gelslim_depth_tpu_torch.data.synthetic import make_mesh_contact_object
+        from gelslim_depth_tpu_torch.meshgen import fixtures, native_render, plane_spec, render_depth_batch
+        from gelslim_depth_tpu_torch.meshgen import sample_surface_points
+        tri = fixtures.heightfield_plate_triangles(fixtures.ridged_height_fn(), grid=(12, 15))
+        pts = sample_surface_points(tri, 2000, seed=0)
+        depth = render_depth_batch(pts, np.zeros((2, 3), np.float32), np.full(2, 12.0, np.float32),
+                                   spec=plane_spec("+y+z"), image_size=(16, 22), mm_per_pixel=1.0, device="cpu")
+        assert depth.shape == (2, 2, 16, 22) and depth.min() < 0
         import runpy
         sys.argv = ["gelslim_depth_tpu_torch", "--help"]
         try:
