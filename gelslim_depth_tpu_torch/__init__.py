@@ -11,7 +11,10 @@ U-Net, the Adam + EMA train step, checkpoints and resume, and the
 export to a ``.gsx`` artifact of ``torch.export`` programs in which both
 kernels are ``torch.library`` custom ops; mesh->depth ground truth
 (``meshgen``: the renderer on the card, a host C++ copy, the dataset
-generator); and the CLI's seven commands (``python -m
+generator); data-parallel and multi-process training and serving over
+``torch.distributed`` (``parallel``: the DP train and eval steps with global
+batch norm, DP serving through both kernels, the DP renderer, the DP
+``Trainer``); and the CLI's seven commands (``python -m
 gelslim_depth_tpu_torch``). The package imports torch and numpy, never JAX
 or gelslim_depth_tpu.
 """

@@ -12,9 +12,16 @@ Replicates the reference's object-list assembly (ref :110-192):
   which silently truncates every split to one object — is NOT replicated;
   use --limit_objects N explicitly for that behavior.
 
-Trains on cuda unless the ``gpu`` positional says otherwise. The flags of
-modules not yet ported (data-parallel and multi-process training, NHWC
-bakes) are refused with exit code 2, never ignored.
+Trains on cuda unless the ``gpu`` positional says otherwise.
+``--data_parallel`` trains over every rank of the process group, one
+process and device a rank: launch it under torchrun, or once per rank with
+``--coordinator_address``, ``--num_processes`` and ``--process_id``
+(``parallel/multihost.py``). Without ``gpu`` each rank takes
+cuda:LOCAL_RANK; naming ``gpu`` and ``--dist_backend`` puts the ranks where
+they say, two on one card included. ``--shard_dataset`` has each rank bake
+its round-robin share of the objects with statistics reduced over the
+ranks. The flag of the module not yet ported (NHWC bakes) is refused with
+exit code 2, never ignored.
 """
 
 from __future__ import annotations
@@ -27,11 +34,6 @@ from gelslim_depth_tpu_torch.cli.quantize_cmd import GPU_HELP, parse_device
 
 # flag -> the module it needs, which the port does not have yet
 UNPORTED_FLAGS = {
-    "data_parallel": "data-parallel training (gelslim_depth_tpu/parallel/mesh.py)",
-    "shard_dataset": "multi-process training (gelslim_depth_tpu/parallel/multihost.py)",
-    "coordinator_address": "multi-process training (gelslim_depth_tpu/parallel/multihost.py)",
-    "num_processes": "multi-process training (gelslim_depth_tpu/parallel/multihost.py)",
-    "process_id": "multi-process training (gelslim_depth_tpu/parallel/multihost.py)",
     "channels_last": "NHWC bakes and the NHWC U-Net (channels_last in gelslim_depth_tpu/data/dataset.py)",
 }
 
@@ -54,12 +56,23 @@ def parse_args(argv):
     p.add_argument("--max_epochs", type=int, default=None)
     p.add_argument("--limit_objects", type=int, default=None,
                    help="Debug: truncate every object list to N entries")
-    p.add_argument("--data_parallel", action="store_true", help="not ported yet: refused")
-    p.add_argument("--coordinator_address", type=str, default=None, help="not ported yet: refused")
-    p.add_argument("--num_processes", type=int, default=None, help="not ported yet: refused")
-    p.add_argument("--process_id", type=int, default=None, help="not ported yet: refused")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="Train over every rank of the process group, one process and "
+                        "device a rank (launch with torchrun or the three flags below)")
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="Multi-process: <host0>:<port> of rank 0, or a torch.distributed "
+                        "URL (file://...); omit under torchrun")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="Multi-process: total number of processes (ranks)")
+    p.add_argument("--process_id", type=int, default=None, help="Multi-process: this process's rank")
+    p.add_argument("--dist_backend", type=str, default=None,
+                   help="torch.distributed backend (default: NCCL for CUDA tensors, gloo for "
+                        "CPU ones); naming it and the gpu positional lets ranks share a card")
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
-    p.add_argument("--shard_dataset", action="store_true", help="not ported yet: refused")
+    p.add_argument("--shard_dataset", action="store_true",
+                   help="With --data_parallel: each rank bakes only its round-robin share of "
+                        "the object files instead of replicating the dataset on every rank; "
+                        "normalization statistics are reduced over the ranks")
     p.add_argument("--channels_last", action="store_true", help="not ported yet: refused")
     p.add_argument("--bf16_data", action="store_true",
                    help="Store baked tactile images as bfloat16 (halves "
@@ -128,7 +141,34 @@ def run(argv):
             print(f"train --{f}: needs {UNPORTED_FLAGS[f]}, which is not ported to "
                   "gelslim_depth_tpu_torch yet", file=sys.stderr)
         return 2
+    if args.shard_dataset and not args.data_parallel:
+        print("train --shard_dataset: needs --data_parallel", file=sys.stderr)
+        return 2
 
+    import torch.distributed as dist
+
+    from gelslim_depth_tpu_torch.parallel import multihost
+
+    joined = not multihost.is_initialized()
+    try:
+        multihost.initialize(args.coordinator_address, args.num_processes, args.process_id,
+                             backend=args.dist_backend)
+    except ValueError as e:
+        print(f"train: {e}", file=sys.stderr)
+        return 2
+    joined = joined and multihost.is_initialized()
+    try:
+        if multihost.is_initialized() and dist.get_world_size() > 1 and not args.data_parallel:
+            print(f"train: {dist.get_world_size()} processes without --data_parallel would train that many "
+                  "independent copies into one output directory", file=sys.stderr)
+            return 2
+        return _train(args)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _train(args):
     import torch
 
     from gelslim_depth_tpu_torch.config import GelslimConfig
@@ -179,8 +219,35 @@ def run(argv):
         max_datapoints_per_object=args.max_datapoints_per_object,
         interp_method=config.interp_method,
         image_store_dtype=torch.bfloat16 if args.bf16_data else None,
-        device=args.device,
     )
+    mesh = None
+    if args.data_parallel:
+        from gelslim_depth_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(device=None if args.gpu is None else args.device, backend=args.dist_backend)
+        print(f"Data-parallel over {mesh.size} ranks; rank {mesh.rank} on {mesh.device}")
+    common["device"] = mesh.device if mesh is not None else args.device
+    sharded = False
+    if args.shard_dataset:
+        pc, pi = mesh.size, mesh.rank
+        if pc > 1:
+            sharded = True
+
+            def shard(lst):
+                return lst[pi::pc]
+
+            if not shard(train_o) and not shard(rtrain_o):
+                raise SystemExit(
+                    f"--shard_dataset: rank {pi} of {pc} would receive no train files ({len(train_o)} "
+                    "objects total); use the replicated default for datasets this small"
+                )
+            train_o, val_o, test_o = shard(train_o), shard(val_o), shard(test_o)
+            rtrain_o, rval_o, rtest_o = shard(rtrain_o), shard(rval_o), shard(rtest_o)
+            from gelslim_depth_tpu_torch.parallel import global_dataset_stats
+
+            common["stats_reduce"] = global_dataset_stats
+        else:
+            print("--shard_dataset ignored: single process")
     print(f"Baking train set ({len(train_o)} objects + {len(rtrain_o)} real)...")
     train_ds = bake_dataset(
         os.path.join(dataset_path, "train_data"), train_o,
@@ -214,7 +281,9 @@ def run(argv):
     trainer = Trainer(
         config, train_ds, val_ds, test_ds,
         output_dir=args.output_dir,
-        device=args.device,
+        device=None if mesh is not None else args.device,
+        mesh=mesh,
+        dataset_sharding="sharded" if sharded else "replicated",
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
         starting_weights=starting,
         enable_plots=args.plots,

@@ -47,7 +47,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -314,18 +314,26 @@ def _c(v: torch.Tensor) -> torch.Tensor:
     return v.view(1, -1, 1, 1)
 
 
-def _batch_norm(y, prefix, i, params, stats, train, sample_weight):
+def _batch_norm(y, prefix, i, params, stats, train, sample_weight, reduce=None, n_samples=None):
     """BatchNorm i of a DoubleConv: returns (out, batch mean, biased batch
     var), the statistics None in eval. Train statistics are taken in
     float32 as mean(x^2) - mean(x)^2, mask-weighted with sample_weight
     ((N, 1, 1, 1) of 0/1), as ``gelslim_depth_tpu.models.unet._batch_norm``
-    takes them; eval folds the running statistics on the fly."""
+    takes them; eval folds the running statistics on the fly. With reduce,
+    the per-channel sums of x and x^2 are summed over the ranks and divided
+    by the ranks' n_samples (valid samples in all) times the pixels."""
     scale, bias = params[f"{prefix}.{i}.weight"], params[f"{prefix}.{i}.bias"]
     if not train:
         inv = torch.rsqrt(stats[f"{prefix}.{i}.running_var"] + BN_EPS) * scale
         return y * _c(inv) + _c(bias - stats[f"{prefix}.{i}.running_mean"] * inv), None, None
     yf = y.to(torch.promote_types(y.dtype, torch.float32))  # bf16 -> f32; f64 stays
-    if sample_weight is None:
+    if reduce is not None:
+        yw = yf if sample_weight is None else yf * sample_weight
+        sums = reduce(torch.cat([yw.sum((0, 2, 3)), (yf * yw).sum((0, 2, 3))]))
+        n = n_samples * (y.shape[2] * y.shape[3])
+        m, sq = sums[: y.shape[1]] / n, sums[y.shape[1]:] / n
+        v = sq - m * m
+    elif sample_weight is None:
         m = yf.mean((0, 2, 3))
         v = (yf * yf).mean((0, 2, 3)) - m * m
     else:
@@ -336,21 +344,24 @@ def _batch_norm(y, prefix, i, params, stats, train, sample_weight):
     return (yf - _c(m)) * _c(torch.rsqrt(v + BN_EPS)) * _c(scale) + _c(bias), m, v
 
 
-def _double_conv(x, prefix, *, params, stats, act, train, dtype, sample_weight):
+def _double_conv(x, prefix, *, params, stats, act, train, dtype, sample_weight, reduce=None, n_samples=None):
     """(conv -> BN -> activation) x 2 as a pure function: returns (y, the
     block's new running statistics | None). It mutates nothing, so
     recomputing it under torch.utils.checkpoint updates no statistic twice."""
     y = F.conv2d(x.to(dtype), params[f"{prefix}.0.weight"].to(dtype), padding=1)
-    y, m1, v1 = _batch_norm(y, prefix, 1, params, stats, train, sample_weight)
+    y, m1, v1 = _batch_norm(y, prefix, 1, params, stats, train, sample_weight, reduce, n_samples)
     y = act(y).to(dtype)
     y = F.conv2d(y, params[f"{prefix}.3.weight"].to(dtype), padding=1)
-    y, m2, v2 = _batch_norm(y, prefix, 4, params, stats, train, sample_weight)
+    y, m2, v2 = _batch_norm(y, prefix, 4, params, stats, train, sample_weight, reduce, n_samples)
     y = act(y).to(dtype)
     if not train:
         return y, None
     # the running var takes the unbiased estimate; n counts the block
     # input's pixels, as the JAX package counts them
-    if sample_weight is None:
+    if reduce is not None:
+        n = n_samples * (x.shape[2] * x.shape[3])
+        corr = n / torch.clamp(n - 1.0, min=1.0)
+    elif sample_weight is None:
         n = x.shape[0] * x.shape[2] * x.shape[3]
         corr = n / max(n - 1, 1)
     else:
@@ -374,6 +385,7 @@ def unet_apply(
     compute_dtype: torch.dtype = torch.float32,
     remat: bool = False,
     sample_mask: Optional[torch.Tensor] = None,
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, BatchStats]:
     """Run the U-Net on NCHW x over reference-layout dictionaries: params
     (conv kernels and biases, BN weight and bias) and batch_stats (BN
@@ -387,13 +399,25 @@ def unet_apply(
     padded samples from every batch statistic and update. remat=True
     recomputes each DoubleConv in the backward (torch.utils.checkpoint).
     float32 runs its convs with cuDNN TF32 off; a train step holds
-    ``full_precision`` across its forward and backward."""
+    ``full_precision`` across its forward and backward.
+
+    reduce, for data-parallel training, sums a tensor over the ranks,
+    differentiably (``parallel.Mesh.all_reduce_grad``): x is then this
+    rank's rows of a global batch, and every train-mode batch statistic,
+    and the running variance's sample count, is taken over all the ranks'
+    rows, so the ranks normalize alike and equal the single-device math on
+    the global batch. Without it the statistics are this call's alone."""
     sample_weight = None
     if train and sample_mask is not None:
         sample_weight = sample_mask.to(torch.float32).view(-1, 1, 1, 1)
+    n_samples = None
+    if train and reduce is not None:
+        count = torch.tensor(float(x.shape[0]), device=x.device) if sample_weight is None else sample_weight.sum()
+        n_samples = reduce(count.reshape(1).to(torch.promote_types(x.dtype, torch.float32)))[0]
     dtype = compute_dtype
     dc = functools.partial(_double_conv, params=params, stats=batch_stats, act=_activation_fn(cfg.activation),
-                           train=train, dtype=dtype, sample_weight=sample_weight)
+                           train=train, dtype=dtype, sample_weight=sample_weight,
+                           reduce=reduce if train else None, n_samples=n_samples)
     new_stats = dict(batch_stats) if train else batch_stats
 
     def run_dc(h, prefix):

@@ -1,6 +1,7 @@
-"""Training of the port: the pure train and eval steps (Adam + EMA + MSE),
-checkpoints and train-state resume in the JAX package's formats, and the
-single-device ``Trainer``."""
+"""Training of the port: the pure train and eval steps (Adam + EMA + MSE)
+and their data-parallel forms, checkpoints and train-state resume in the
+JAX package's formats, and the ``Trainer``, on one device or over the ranks
+of a ``parallel.Mesh``."""
 
 from gelslim_depth_tpu_torch.train.checkpoint import (
     load_checkpoint,

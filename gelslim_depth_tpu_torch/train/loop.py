@@ -23,8 +23,21 @@ the reference's observable policy (ref train_utils/train_unet.py:306-523):
   491-498), plus matplotlib loss curves and sample triptychs.
 
 Runs on ``cuda`` unless device says otherwise, and raises without a card.
-Data-parallel, multi-host and sharded-dataset training and the profiler
-trace of the first epoch are not ported yet.
+
+Data-parallel: pass a ``parallel.Mesh`` and every rank runs this loop on
+its device with the DP train and eval steps (global batch norm, global
+masked loss, all-reduced gradients). Each global batch is padded to a
+multiple of the ranks and every rank takes its own rows of it under the
+mask. dataset_sharding 'replicated' (the default) has every rank hold the
+whole baked dataset and share the epoch's shuffle through the seed, so the
+batches and the math are the single-device run's. 'sharded' has each
+rank's datasets hold only its shard (bake it with
+``stats_reduce=parallel.global_dataset_stats`` for global statistics):
+each rank shuffles its shard with seed + 7919 * rank, the largest shard
+sets the steps of an epoch (gathered once, at construction), and smaller
+shards pad their tail under mask False. Only rank 0 writes logs, plots,
+checkpoints and the resume file. The profiler trace of the first epoch is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -46,12 +59,26 @@ from gelslim_depth_tpu_torch.train import checkpoint as ckpt
 from gelslim_depth_tpu_torch.train.steps import (
     create_train_state,
     eval_epoch,
+    make_dp_eval_step,
+    make_dp_train_step,
     make_eval_step,
     make_optimizer,
     make_train_step,
     train_epoch,
 )
 from gelslim_depth_tpu_torch.utils.device import resolve_device
+
+
+def sharded_epoch_indices(n_local: int, n_steps: int, local_bs: int, seed: int):
+    """(perm, masks), each (n_steps, local_bs), of one rank's shard in a
+    sharded epoch: the shard shuffled by RandomState(seed), its tail padded
+    with sample 0 under mask False."""
+    order = np.random.RandomState(seed).permutation(n_local)
+    perm = np.zeros(n_steps * local_bs, np.int32)
+    masks = np.zeros(n_steps * local_bs, bool)
+    take = min(perm.size, n_local)
+    perm[:take], masks[:take] = order[:take], True
+    return perm.reshape(n_steps, local_bs), masks.reshape(n_steps, local_bs)
 
 
 class Trainer:
@@ -64,6 +91,8 @@ class Trainer:
         *,
         output_dir: str = "train_output",
         device=None,
+        mesh=None,
+        dataset_sharding: str = "replicated",
         compute_dtype: torch.dtype = torch.float32,
         seed: int = 0,
         starting_weights=None,  # a reference-layout state dict, for fine-tuning
@@ -74,7 +103,17 @@ class Trainer:
     ):
         self.config = config
         self.unet_cfg = config.unet_config()
-        self.device = resolve_device(device)
+        if mesh is not None and device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device} differs from the mesh's {mesh.device}")
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.mesh = mesh
+        if dataset_sharding not in ("replicated", "sharded"):
+            raise ValueError(f"dataset_sharding {dataset_sharding!r}: want replicated|sharded")
+        if dataset_sharding == "sharded" and mesh is None:
+            raise ValueError("dataset_sharding='sharded' needs a mesh")
+        self.sharded = dataset_sharding == "sharded"
+        # rank 0 owns every file the run writes
+        self.is_main = mesh is None or mesh.rank == 0
         self.train_ds, self.val_ds, self.test_ds = train_ds, val_ds, test_ds
         self.output_dir = output_dir
         self.compute_dtype = compute_dtype
@@ -88,8 +127,9 @@ class Trainer:
         self.loss_values_path = os.path.join(output_dir, "loss_values")
         self.loss_curve_dir = os.path.join(output_dir, "loss_curves")
         self.live_display_dir = os.path.join(output_dir, "live_display")
-        for d in (self.weights_dir, self.loss_values_path, self.loss_curve_dir, self.live_display_dir):
-            os.makedirs(d, exist_ok=True)
+        if self.is_main:
+            for d in (self.weights_dir, self.loss_values_path, self.loss_curve_dir, self.live_display_dir):
+                os.makedirs(d, exist_ok=True)
         self.loss_file = os.path.join(self.loss_values_path, f"{config.weights_name}.txt")
 
         self.optimizer = make_optimizer(config.training_learning_rate, config.weight_decay)
@@ -100,9 +140,25 @@ class Trainer:
         else:
             self.state = create_train_state(self.unet_cfg, self.optimizer,
                                             generator=torch.Generator().manual_seed(seed), device=self.device)
-        self._train_step = make_train_step(self.unet_cfg, self.optimizer, compute_dtype=compute_dtype,
-                                           masked=True, remat=remat)
-        self._eval_step = make_eval_step(self.unet_cfg, compute_dtype=compute_dtype, masked=True)
+        if mesh is None:
+            self._train_step = make_train_step(self.unet_cfg, self.optimizer, compute_dtype=compute_dtype,
+                                               masked=True, remat=remat)
+            self._eval_step = make_eval_step(self.unet_cfg, compute_dtype=compute_dtype, masked=True)
+        else:
+            from gelslim_depth_tpu_torch.parallel import gather_rows, replicate
+
+            self._train_step = make_dp_train_step(self.unet_cfg, self.optimizer, mesh, compute_dtype=compute_dtype,
+                                                  masked=True, remat=remat)
+            self._eval_step = make_dp_eval_step(self.unet_cfg, mesh, compute_dtype=compute_dtype, masked=True)
+            self.state = replicate(mesh, self.state)
+            # a global batch of batch_size rounded up to a multiple of the ranks
+            self._local_bs = -(-config.batch_size // mesh.size)
+            if self.sharded:
+                # steps an epoch of each split: the largest shard's
+                splits = list({id(ds): ds for ds in (train_ds, val_ds, test_ds)}.values())
+                sizes = gather_rows(mesh, torch.tensor([[len(ds) for ds in splits]], device=mesh.device))
+                self._n_steps = {id(ds): max(-(-int(n) // self._local_bs), 1)
+                                 for ds, n in zip(splits, sizes.max(0).values.tolist())}
 
         # freeze the LEARNED preprocessing state into the config artifact, as
         # the reference's generated configs do (ref train_unet.py:208-216, 288-291)
@@ -124,25 +180,38 @@ class Trainer:
 
         # the frozen config artifacts, written before training starts like
         # the reference's config_<name>.py (:253-303)
-        config.save_json(os.path.join(self.weights_dir, f"{config.weights_name}.json"))
-        config.emit_python_config(os.path.join(self.weights_dir, f"config_{config.weights_name}.py"))
+        if self.is_main:
+            config.save_json(os.path.join(self.weights_dir, f"{config.weights_name}.json"))
+            config.emit_python_config(os.path.join(self.weights_dir, f"config_{config.weights_name}.py"))
 
     # ------------------------------------------------------------------
     def _log(self, msg: str):
         self.log_fn(msg)
-        with open(self.loss_file, "a") as f:
-            f.write(msg + "\n")
+        if self.is_main:
+            with open(self.loss_file, "a") as f:
+                f.write(msg + "\n")
 
     def _arrays(self, ds: BakedDataset):
         return ds.tactile_image.to(self.device), ds.depth_image.to(self.device)
 
+    def _epoch_indices(self, ds: BakedDataset, seed: int):
+        """(perm, masks) of this rank's rows of one epoch's padded batches."""
+        if self.sharded:
+            return sharded_epoch_indices(len(ds), self._n_steps[id(ds)], self._local_bs, seed + 7919 * self.mesh.rank)
+        it = BatchIterator(ds, self.config.batch_size, shuffle=True, seed=seed)
+        if self.mesh is None:
+            return it.padded_epoch_indices()
+        perm, masks = it.padded_epoch_indices(pad_to_multiple_of=self.mesh.size)
+        rows = self.mesh.rows(perm.shape[1])
+        return perm[:, rows], masks[:, rows]
+
     def _train_epoch(self, seed: int) -> float:
-        perm, masks = BatchIterator(self.train_ds, self.config.batch_size, shuffle=True, seed=seed).padded_epoch_indices()
+        perm, masks = self._epoch_indices(self.train_ds, seed)
         self.state, loss = train_epoch(self._train_step, self.state, *self._arrays(self.train_ds), perm, masks)
         return float(loss)  # one host readback an epoch
 
     def _eval_epoch(self, ds: BakedDataset, seed: int) -> float:
-        perm, masks = BatchIterator(ds, self.config.batch_size, shuffle=True, seed=seed).padded_epoch_indices()
+        perm, masks = self._epoch_indices(ds, seed)
         return float(eval_epoch(self._eval_step, self.state, *self._arrays(ds), perm, masks))
 
     def _early_stop_update(self, val_loss: float) -> bool:
@@ -168,7 +237,8 @@ class Trainer:
 
     def _save_best(self):
         self._log("Validation loss is at a minimum. Saving the model")
-        ckpt.save_weights(self.weights_dir, self.config, self.ema_state_dict())
+        if self.is_main:
+            ckpt.save_weights(self.weights_dir, self.config, self.ema_state_dict())
 
     # ------------------------------------------------------------------
     def fit(self, max_epochs: Optional[int] = None) -> Dict[str, List[float]]:
@@ -197,7 +267,7 @@ class Trainer:
                 self._save_best()
                 self.min_validation_loss = val_loss
 
-            if cfg.train_indefinitely and self.epoch in cfg.save_at_epochs:
+            if cfg.train_indefinitely and self.epoch in cfg.save_at_epochs and self.is_main:
                 ckpt.save_weights(self.weights_dir, self.config, self.ema_state_dict(),
                                   name=f"{cfg.weights_name}_epoch{self.epoch}")
 
@@ -209,7 +279,7 @@ class Trainer:
             )
             self._log(f"Time for epoch: {time.time() - t0}")
 
-            if self.enable_plots and self.epoch % max(cfg.plot_every_epoch, 1) == 0:
+            if self.enable_plots and self.is_main and self.epoch % max(cfg.plot_every_epoch, 1) == 0:
                 self._plot_curves()
                 self._plot_samples()
 
@@ -227,7 +297,10 @@ class Trainer:
         the loop's bookkeeping: the epoch counter (which seeds the
         shuffles), the best validation minimum and the loss history. Without
         it a resumed run would replay epoch 0's batch order, save a spurious
-        'best' and reset the early-stop window."""
+        'best' and reset the early-stop window. Only rank 0 writes; every
+        rank returns the path."""
+        if not self.is_main:
+            return os.path.join(self.weights_dir, f"{name}.npz")
         path = ckpt.save_train_state(self.weights_dir, self.state, name=name)
         loop = {
             "epoch": self.epoch,
@@ -246,6 +319,10 @@ class Trainer:
 
     def load_resume_state(self, name: str = "train_state"):
         self.state = ckpt.load_train_state(self.weights_dir, name=name, device=self.device)
+        if self.mesh is not None:
+            from gelslim_depth_tpu_torch.parallel import replicate
+
+            self.state = replicate(self.mesh, self.state)
         loop_path = os.path.join(self.weights_dir, f"{name}_loop.json")
         if not os.path.exists(loop_path):
             warnings.warn(

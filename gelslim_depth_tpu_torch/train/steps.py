@@ -20,6 +20,9 @@ float32 parameters (the masters; the forward casts them to the compute
 dtype), running statistics, Adam moments, the EMA shadow, and int32 device
 counters. float32 steps hold cuDNN TF32 off across the forward AND the
 backward, as the JAX package differentiates at ``Precision.HIGHEST``.
+``make_dp_train_step`` and ``make_dp_eval_step`` run the same steps over
+the ranks of a ``parallel.Mesh``, each rank on its own rows of a global
+batch (the port of ``gelslim_depth_tpu/parallel/mesh.py``'s DP steps).
 """
 
 from __future__ import annotations
@@ -221,6 +224,70 @@ def make_train_step(unet_cfg: UNetConfig, optimizer: Adam, *, compute_dtype=torc
     return TrainStep(unet_cfg, optimizer, compute_dtype=compute_dtype, masked=masked, remat=remat)
 
 
+def _squared_error_and_count(pred, target, valid_mask):
+    """(sum of squared errors over the valid samples, their count, elements
+    a sample): the parts of ``mse_loss`` that add up over ranks."""
+    sq = torch.square(pred - target)
+    if valid_mask is None:
+        count = torch.tensor(float(sq.shape[0]), device=sq.device, dtype=sq.dtype)
+        return sq.sum(), count, int(np.prod(sq.shape[1:]))
+    m = valid_mask.to(sq.dtype)
+    return (sq * m.view(-1, *([1] * (sq.ndim - 1)))).sum(), m.sum(), int(np.prod(sq.shape[1:]))
+
+
+def _global_mse(mesh, sse, count, per_sample):
+    """The masked MSE over every rank's rows: (loss, its denominator)."""
+    tot = mesh.all_reduce(torch.stack([sse.detach(), count]))
+    denom = torch.clamp(tot[1], min=1.0) * per_sample
+    return tot[0] / denom, denom
+
+
+class DPTrainStep(TrainStep):
+    """``TrainStep`` over the ranks of a ``parallel.Mesh``, each feeding its
+    own rows of the global batch (the state replicated on every rank):
+
+    - batch norm is global: unet_apply all-reduces its batch sums and
+      counts (``reduce=mesh.all_reduce_grad``);
+    - the loss is the global masked mean, all-reduced squared-error sums
+      over the all-reduced valid count. Each rank backpropagates its own
+      rows' squared errors over that count; the all-reduce's backward sums
+      the batch-norm gradients over the ranks, and the parameter gradients
+      are then all-reduced, so every rank holds the gradient of the global
+      loss;
+    - every rank runs the same Adam + EMA update, and the NaN guard reads
+      the global loss, so the ranks keep or drop a step together and their
+      states stay equal bit for bit.
+
+    One step equals ``TrainStep`` on the whole global batch up to float32
+    summation order."""
+
+    def __init__(self, unet_cfg: UNetConfig, optimizer: Adam, mesh, **kw):
+        super().__init__(unet_cfg, optimizer, **kw)
+        self.mesh = mesh
+
+    def loss_and_grads(self, state: TrainState, images, targets, valid_mask=None):
+        mask = valid_mask if self.masked else None
+        params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
+        with full_precision(self.compute_dtype):
+            pred, new_stats = unet_apply(
+                self.unet_cfg, params, state.batch_stats, images, train=True, compute_dtype=self.compute_dtype,
+                remat=self.remat, sample_mask=mask, reduce=self.mesh.all_reduce_grad,
+            )
+            sse, count, per_sample = _squared_error_and_count(pred, targets, mask)
+            loss, denom = _global_mse(self.mesh, sse, count, per_sample)
+            grads = torch.autograd.grad(sse / denom, list(params.values()))
+        flat = self.mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+        grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+        return loss, new_stats, dict(zip(params, grads))
+
+
+def make_dp_train_step(unet_cfg: UNetConfig, optimizer: Adam, mesh, *, compute_dtype=torch.float32,
+                       masked: bool = False, remat: bool = False) -> DPTrainStep:
+    """step(state, local images, local targets[, local valid_mask]) ->
+    (new state, global loss) on each rank of mesh (``DPTrainStep``)."""
+    return DPTrainStep(unet_cfg, optimizer, mesh, compute_dtype=compute_dtype, masked=masked, remat=remat)
+
+
 def make_eval_step(unet_cfg: UNetConfig, *, use_ema: bool = True, compute_dtype=torch.float32,
                    masked: bool = False):
     """eval(state, images, targets[, valid_mask]) -> loss under the EMA
@@ -234,6 +301,22 @@ def make_eval_step(unet_cfg: UNetConfig, *, use_ema: bool = True, compute_dtype=
         params = state.ema.shadow if use_ema else state.params
         pred, _ = unet_apply(unet_cfg, params, state.batch_stats, images, compute_dtype=compute_dtype)
         loss = mse_loss(pred, targets, valid_mask if masked else None)
+        return torch.where(torch.isfinite(loss), loss, torch.zeros_like(loss))
+
+    return step
+
+
+def make_dp_eval_step(unet_cfg: UNetConfig, mesh, *, use_ema: bool = True, compute_dtype=torch.float32,
+                      masked: bool = False):
+    """``make_eval_step`` over the ranks of mesh: each rank evaluates its
+    rows and every rank returns the global masked loss (0 when it is not
+    finite)."""
+
+    @torch.no_grad()
+    def step(state: TrainState, images, targets, valid_mask=None) -> torch.Tensor:
+        params = state.ema.shadow if use_ema else state.params
+        pred, _ = unet_apply(unet_cfg, params, state.batch_stats, images, compute_dtype=compute_dtype)
+        loss, _ = _global_mse(mesh, *_squared_error_and_count(pred, targets, valid_mask if masked else None))
         return torch.where(torch.isfinite(loss), loss, torch.zeros_like(loss))
 
     return step

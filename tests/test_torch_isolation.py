@@ -18,6 +18,7 @@ BLOCKED = ("jax", "jaxlib", "optax", "gelslim_depth_tpu")
 def test_port_runs_with_jax_blocked(tmp_path):
     script = textwrap.dedent(
         f"""
+        import os
         import sys
 
         class Blocker:
@@ -95,6 +96,27 @@ def test_port_runs_with_jax_blocked(tmp_path):
         depth = render_depth_batch(pts, np.zeros((2, 3), np.float32), np.full(2, 12.0, np.float32),
                                    spec=plane_spec("+y+z"), image_size=(16, 22), mm_per_pixel=1.0, device="cpu")
         assert depth.shape == (2, 2, 16, 22) and depth.min() < 0
+        # data parallelism: a one-rank gloo group through a file store, a
+        # DP train step, DP serving and the DP renderer on its mesh
+        import datetime
+        from gelslim_depth_tpu_torch import parallel
+        from gelslim_depth_tpu_torch.models.unet import split_state_dict
+        from gelslim_depth_tpu_torch.train import create_train_state, make_optimizer
+        parallel.initialize("file://" + os.path.abspath("store"), 1, 0, backend="gloo",
+                            timeout=datetime.timedelta(seconds=60))
+        mesh = parallel.make_mesh(1, device="cpu", backend="gloo")
+        p, s = split_state_dict(sd)
+        opt = make_optimizer()
+        state = parallel.replicate(mesh, create_train_state(cfg.unet_config(), opt, params=p, batch_stats=s))
+        x = torch.rand(2, 3, 8, 11)
+        state, loss = parallel.make_dp_train_step(cfg.unet_config(), opt, mesh)(state, x, torch.zeros(2, 1, 8, 11))
+        assert torch.isfinite(loss)
+        dp = parallel.make_dp_fused_predictor(cfg, cfg.unet_config(), mesh, (16, 22))
+        out = dp(state.params, state.batch_stats, parallel.shard_batch(mesh, frames), torch.from_numpy(frames[0]))
+        assert parallel.gather_rows(mesh, out).shape == (2, 2, 16, 22)
+        render = parallel.make_dp_renderer(mesh, spec=plane_spec("+y+z"), image_size=(16, 22), mm_per_pixel=1.0)
+        assert render(pts, np.zeros((2, 3), np.float32), np.full(2, 12.0, np.float32)).shape == (2, 2, 16, 22)
+        torch.distributed.destroy_process_group()
         import runpy
         sys.argv = ["gelslim_depth_tpu_torch", "--help"]
         try:
