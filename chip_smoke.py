@@ -26,7 +26,12 @@ on cuda:0 in this process (the DP train step in f32 and bf16 against
 ranks that share cuda:0 in child processes of this script (``--parallel-rank``;
 the f32 step, serving and the DP renderer, gathered; a check of
 correctness, not of scaling), and the CLI's ``train --data_parallel`` in 2
-processes. Last, the data-prep and training commands on the card:
+processes. Height-sharded serving (``make_spatial_predictor[_int8]``)
+runs on one flagship dual frame in both parallel groups: NCCL world 1 (one
+band) and the two gloo ranks (a band each), every rank's band held against
+the kernels' plain versions. NHWC (``channels_last``) training is held
+against NCHW and timed, and a bilinear serving call launches no kernel.
+Last, the data-prep and training commands on the card:
 ``generate-depth``, ``train`` (1 epoch, flagship dims, bf16) and ``test``.
 Prints the card, a ``{"kernels": [...]}`` line (launches counted in the
 ranks too), an end-to-end line, an engine and export line, a training line,
@@ -1234,6 +1239,90 @@ def measure_training(ucfg, train, peaks):
     return out
 
 
+def drive_bilinear(cfg, sd, frames64, base):
+    """A bilinear serving call (interp_method 'bilinear', jax.image.resize's
+    linear weights): the f32 Predictor at N=1 takes the composed front end,
+    since the kernel hard-wires the area resize. Run with the launch counts
+    set to 0 just before and read just after: no launch. Held against the
+    same call on the CPU within rtol/atol 1e-4 mm (float32 convs and
+    contractions in another order, TF32 off on the card). Returns (record,
+    launches)."""
+    bcfg = dataclasses.replace(cfg, interp_method="bilinear")
+    pred = Predictor(bcfg, sd)
+    frame = frames64[:1]
+    reset_launches()
+    got = pred.predict_dual_frames(frame, base, FRAME)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = Predictor(bcfg, sd, device="cpu").predict_dual_frames(frame.cpu(), base.cpu(), FRAME)
+    err = (got.cpu() - want).abs().max().item()
+    rec = {"f32_n1_vs_cpu_max_abs_diff_mm": err, "f32_n1_call_ms": host_ms(lambda: pred.predict_dual_frames(
+        frame, base, FRAME), reps=10, warmup=2)}
+    print(f"bilinear serving, f32 N=1: card vs CPU max|diff| {err:.3e} mm, {rec['f32_n1_call_ms']:.3f} ms a call; "
+          f"launches {launches}", flush=True)
+    check(launches["fused_preprocess_dual"] == 0 and launches["conv2d_int8"] == 0,
+          f"bilinear serving launched a kernel: {launches}")
+    check(tuple(got.shape) == (1, 2, *FRAME) and bool(torch.isfinite(got).all()), "bilinear serving: bad depth")
+    check(torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4), f"bilinear serving, card vs CPU: {err} mm")
+    return rec, launches
+
+
+def check_nhwc(ucfg, train):
+    """NHWC (channels_last) training at the flagship dims, batch 16: one
+    float32 train step on NHWC tensors against the NCHW step from the same
+    state, at the card-vs-card bars of the DP check (loss rtol 1e-4 / atol
+    1e-6; new parameters and running statistics rtol 1e-3 / atol 1e-5; each
+    gradient tensor's norm within 1%); then each layout's step in float32
+    and bfloat16 timed: device and host ms, and a trace's cuDNN layout
+    transposes, aten and conv device ms."""
+    x, y = train.tactile_image[:TRAIN_BATCH], train.depth_image[:TRAIN_BATCH]
+    data = {False: (x, y), True: (x.permute(0, 2, 3, 1).contiguous(), y.permute(0, 2, 3, 1).contiguous())}
+    mask = torch.ones(TRAIN_BATCH, dtype=torch.bool, device="cuda")
+    out = {}
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        opt = make_optimizer()
+        steps = {cl: make_train_step(ucfg, opt, compute_dtype=dtype, masked=True, channels_last=cl)
+                 for cl in (False, True)}
+        state = create_train_state(ucfg, opt, generator=torch.Generator().manual_seed(2), device="cuda")
+        state, _ = steps[False](state, x, y, mask)  # Adam's moments no longer zero
+        rec = out[tag] = {}
+        if dtype == torch.float32:
+            parts = {cl: steps[cl].loss_and_grads(state, *data[cl], mask) for cl in (False, True)}
+            new = {cl: steps[cl].apply_updates(state, *parts[cl])[0] for cl in (False, True)}
+            ratios = [parts[True][2][k].double().norm().item() / max(g.double().norm().item(), 1e-30)
+                      for k, g in parts[False][2].items()]
+            off = {p: [k for k, v in getattr(new[False], p).items()
+                       if not torch.allclose(getattr(new[True], p)[k], v, **DP_TOL)] for p in ("params", "batch_stats")}
+            rec.update(loss_nchw=parts[False][0].item(), loss_nhwc=parts[True][0].item(),
+                       grad_norm_ratio_range=[min(ratios), max(ratios)], tensors_off={p: len(v) for p, v in off.items()},
+                       params_max_abs_diff=max((new[True].params[k] - v).abs().max().item()
+                                               for k, v in new[False].params.items()))
+            print(f"NHWC f32 train step vs NCHW: {rec}", flush=True)
+            check(np.isclose(rec["loss_nhwc"], rec["loss_nchw"], **LOSS_TOL), f"NHWC f32 step loss: {rec}")
+            check(not off["params"] and not off["batch_stats"], f"NHWC f32 step off the DP bar vs NCHW: {off}")
+            check(0.99 <= min(ratios) and max(ratios) <= 1.01, f"NHWC f32 step gradient norm ratios: {rec}")
+            del parts, new
+        for cl in (False, True):
+            run = lambda: steps[cl](state, *data[cl], mask)  # noqa: E731
+            layout = "nhwc" if cl else "nchw"
+            rec[f"{layout}_device_ms"] = device_ms(run, calls=5)
+            rec[f"{layout}_host_ms"] = host_ms(run, reps=5, warmup=1)
+            prof = device_profile(run, calls=3, op_keys=TRAIN_OP_KEYS, other=TRAIN_LIBRARY_OPS)
+            rec[f"{layout}_device_profile"] = None if prof is None else {
+                "busy_ms_per_step": prof[0], "idle_share": prof[1], "device_ops_per_step": prof[2],
+                "device_ms_per_step": prof[4]}
+            del run
+        print(f"NHWC vs NCHW train step {tag}, batch {TRAIN_BATCH}: device {rec['nhwc_device_ms']:.3f} vs "
+              f"{rec['nchw_device_ms']:.3f} ms, host {rec['nhwc_host_ms']:.3f} vs {rec['nchw_host_ms']:.3f} ms; "
+              "transposes " + " vs ".join(
+                  "not measured" if rec[f"{lo}_device_profile"] is None else
+                  f"{rec[f'{lo}_device_profile']['device_ms_per_step']['cudnn layout transposes']:.3f} ms"
+                  for lo in ("nhwc", "nchw")), flush=True)
+        del state, steps
+        torch.cuda.empty_cache()
+    return out
+
+
 def sphere_triangles(radius: float = 8.0, n_lat: int = 96, n_lon: int = 192) -> np.ndarray:
     """A UV sphere in mm as (T, 3, 3) float32 triangles (those at the poles
     have no area, so surface sampling never picks them)."""
@@ -1599,6 +1688,81 @@ def dp_render_check(mesh, render_npz, tag):
     return rec
 
 
+SPATIAL_SEED = 9  # the spatial phase's dual frame, the same on every rank
+
+
+def spatial_check(mesh, cfg, sd, q, tag):
+    """Height-sharded serving of one flagship dual frame
+    (parallel.make_spatial_predictor[_int8]), this rank's band of rows, in
+    f32, bf16 and int8, run with the launch counts set to 0 just before and
+    read just after: each rank launches fused_preprocess_dual once a call,
+    on its band of frame rows, and conv2d_int8 17 times on its haloed int8
+    bands. Each rank then holds its band against the kernels' plain
+    versions at the band's shapes: the f32 call against the same predictor
+    with the composed front end (use_kernel=False) within 1e-4 mm, the int8
+    call against the same model with every quantized conv on its plain
+    twin, bit for bit. Gathered, rank 0 holds f32 to Predictor within rtol
+    1e-4 / atol 1e-5 mm (and, at one rank, to make_dp_fused_predictor on the
+    same frame within 1e-5 mm), int8 to QuantizedPredictor within 1e-4 mm,
+    and bf16 to Predictor(bf16) within the 0.05 mm RMSE gate. Returns
+    (record, launches)."""
+    g = torch.Generator(device=mesh.device).manual_seed(SPATIAL_SEED)
+    frame = torch.rand((1, 6, *FRAME), generator=g, device=mesh.device) * 255.0
+    base = torch.rand((6, *FRAME), generator=g, device=mesh.device) * 255.0
+    ucfg = cfg.unet_config()
+    params, stats = parallel.replicate(mesh, unet_module.split_state_dict(sd))
+    sp32 = parallel.make_spatial_predictor(cfg, ucfg, mesh, FRAME)
+    sp16 = parallel.make_spatial_predictor(cfg, ucfg, mesh, FRAME, compute_dtype=torch.bfloat16)
+    sq = parallel.make_spatial_predictor_int8(cfg, mesh, FRAME, compute_dtype=torch.bfloat16)
+    band, base_band = parallel.shard_height(mesh, sp32.plan, frame, base)
+    reset_launches()
+    out32, out16, out8 = sp32(params, stats, band, base_band), sp16(params, stats, band, base_band), sq(q, band, base_band)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    exchanges = {"f32": sp32.halo.exchanges, "int8": sq.halo.exchanges}
+    sites = len(quantize_module._quantized_sites(q.cfg))
+    check(launches["fused_preprocess_dual"] == 3 and launches["conv2d_int8"] == sites, f"{tag} spatial launches {launches}")
+    composed = parallel.make_spatial_predictor(cfg, ucfg, mesh, FRAME, use_kernel=False)
+    before = fused_preprocess_dual.launches
+    plain32 = composed(params, stats, band, base_band)
+    check(fused_preprocess_dual.launches == before, f"{tag}: the composed spatial front end launched the kernel")
+    with plain_int8_convs():
+        plain8 = sq(q, band, base_band)
+    errs = torch.stack([(out32 - plain32).abs().max(), (out8 - plain8).abs().max()]).reshape(1, 2)
+    errs = parallel.gather_rows(mesh, errs).tolist()
+    rec = {"net_rows": sp32.plan.net_rows, "exchanges_a_call": exchanges,
+           "f32_kernel_vs_composed_front_end_max_abs_diff_mm": [e[0] for e in errs],
+           "int8_kernel_vs_plain_twins_max_abs_diff_mm": [e[1] for e in errs]}
+    for name, fn in (("f32", lambda: sp32(params, stats, band, base_band)),
+                     ("bf16", lambda: sp16(params, stats, band, base_band)), ("int8", lambda: sq(q, band, base_band))):
+        rec[f"{name}_call_ms"] = host_ms(fn, reps=10, warmup=2)
+    del plain32, plain8
+    check(max(e[0] for e in errs) < 1e-4, f"{tag} spatial f32, kernel vs composed front end: {rec}")
+    check(max(e[1] for e in errs) == 0, f"{tag} spatial int8, kernel vs plain twins not bit for bit: {rec}")
+    got32, got16, got8 = (parallel.gather_height(mesh, o) for o in (out32, out16, out8))
+    if mesh.rank == 0:
+        want32 = Predictor(cfg, sd, device=mesh.device).predict_dual_frames(frame, base, FRAME)
+        want16 = Predictor(cfg, sd, compute_dtype=torch.bfloat16, device=mesh.device).predict_dual_frames(
+            frame, base, FRAME)
+        want8 = QuantizedPredictor(cfg, q, compute_dtype=torch.bfloat16, device=mesh.device).predict_dual_frames(
+            frame, base, FRAME)
+        rec.update(f32_max_abs_diff_mm=(got32 - want32).abs().max().item(),
+                   bf16_rmse_mm=(got16 - want16).pow(2).mean().sqrt().item(),
+                   bf16_max_abs_diff_mm=(got16 - want16).abs().max().item(),
+                   int8_max_abs_diff_mm=(got8 - want8).abs().max().item())
+        if mesh.size == 1:
+            dp = parallel.make_dp_fused_predictor(cfg, ucfg, mesh, FRAME)(params, stats, frame, base)
+            rec["f32_vs_dp_max_abs_diff_mm"] = (got32 - dp).abs().max().item()
+            check(rec["f32_vs_dp_max_abs_diff_mm"] < 1e-5, f"{tag} spatial f32 vs make_dp_fused_predictor: {rec}")
+        print(f"{tag} spatial: {rec}; launches {launches}", flush=True)
+        check(all(tuple(o.shape) == (1, 2, *FRAME) for o in (got32, got16, got8)), f"{tag} spatial shapes")
+        check(all(bool(torch.isfinite(o).all()) for o in (got32, got16, got8)), f"{tag} spatial: non-finite depth")
+        check(torch.allclose(got32, want32, rtol=1e-4, atol=1e-5), f"{tag} spatial f32 vs Predictor: {rec}")
+        check(rec["int8_max_abs_diff_mm"] < 1e-4, f"{tag} spatial int8 vs QuantizedPredictor: {rec}")
+        check(rec["bf16_rmse_mm"] < 0.05, f"{tag} spatial bf16 vs Predictor(bf16): {rec}")
+    return rec, launches
+
+
 def parallel_rank_main(rank: int, workdir: str) -> None:
     """One of PARALLEL_WORLD gloo ranks on cuda:0, named with the backend
     (the same-card check of the mesh passes only so): the float32 DP step at
@@ -1620,8 +1784,10 @@ def parallel_rank_main(rank: int, workdir: str) -> None:
     q = QuantizedPredictor.from_checkpoint(os.path.join(workdir, "q"), device=mesh.device).q
     serving, launches = dp_serving_check(mesh, cfg, seeded_state_dict(cfg.unet_config(), seed=0), q, tag)
     render = dp_render_check(mesh, os.path.join(workdir, "plate_render.npz"), tag)
+    spatial, spatial_launches = spatial_check(mesh, cfg, seeded_state_dict(cfg.unet_config(), seed=0), q, tag)
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
-        json.dump({"step_f32": step, "serving": serving, "render": render, "launches": launches}, f)
+        json.dump({"step_f32": step, "serving": serving, "render": render, "spatial": spatial, "launches": launches,
+                   "spatial_launches": spatial_launches}, f)
     torch.distributed.destroy_process_group()
 
 
@@ -1667,6 +1833,8 @@ def drive_parallel(cfg, sd, qpred, train, workdir):
             del run, single_run, state
             torch.cuda.empty_cache()
         rec["serving"], launches["parallel_nccl_world1"] = dp_serving_check(mesh, cfg, sd, qpred.q, tag)
+        rec["spatial"], launches["spatial_nccl_world1"] = spatial_check(mesh, cfg, sd, parallel.replicate(mesh, qpred.q),
+                                                                        tag)
     finally:
         torch.distributed.destroy_process_group()
 
@@ -1682,10 +1850,12 @@ def drive_parallel(cfg, sd, qpred, train, workdir):
             ranks.append(json.load(f))
     print(logs[0][-2500:], flush=True)
     out["gloo_world2_same_card"] = {"wall_s": time.perf_counter() - t0, "rank0": ranks[0],
-                                    "other_ranks": [{k: r[k] for k in ("step_f32", "serving", "render")}
+                                    "other_ranks": [{k: r[k] for k in ("step_f32", "serving", "render", "spatial")}
                                                     for r in ranks[1:]]}
     launches["parallel_gloo_world2"] = {k: sum(r["launches"][k] for r in ranks)
                                         for k in ("fused_preprocess_dual", "conv2d_int8")}
+    launches["spatial_gloo_world2"] = {k: sum(r["spatial_launches"][k] for r in ranks)
+                                       for k in ("fused_preprocess_dual", "conv2d_int8")}
     check(all(r["launches"]["fused_preprocess_dual"] == 3 and r["launches"]["conv2d_int8"] > 0 for r in ranks),
           f"gloo ranks' launches {[r['launches'] for r in ranks]}")
 
@@ -1752,15 +1922,17 @@ def main() -> None:
     entry_launches = drive_entry()
     engine, engine_launches = drive_engine(pred16, qpred, frames64, base, e2e)
     exported, export_launches = drive_export(cfg, sd, pred16, qpred, frames64, base)
+    bilinear, bilinear_launches = drive_bilinear(cfg, sd, frames64, base)
     with tempfile.TemporaryDirectory() as workdir:
         reset_launches()
         meshgen = drive_meshgen(workdir)
         meshgen_launches = read_launches()
         timing = measure_training(ucfg, train, peaks)
+        nhwc = check_nhwc(ucfg, train)
         parallel_run, parallel_launches = drive_parallel(cfg, sd, qpred, train, workdir)
     path_launches = {"main": {"fused_preprocess_dual": launches}, "int8": int8_launches, "entry": entry_launches,
                      "engine": engine_launches, "export": export_launches, "meshgen": meshgen_launches,
-                     **parallel_launches}
+                     "bilinear": bilinear_launches, **parallel_launches}
     t = timings[64]
     sums = {k: sum(v[k] for v in sites.values()) for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bytes_ms", "ops_ms")}
     kernels = [{
@@ -1795,13 +1967,14 @@ def main() -> None:
     training = {"parity": check_train_step_parity(ucfg, train), "bf16_losses": check_bf16_learning(ucfg, train)}
     training["fit"], train_launches = drive_training(train_cfg, train, val, test, base)
     training["timing"] = timing
+    training["nhwc"] = nhwc
     with tempfile.TemporaryDirectory() as workdir:
         reset_launches()
         cli_run = drive_cli_data_prep(workdir)
         cli_launches = read_launches()
     print(json.dumps({"end_to_end": e2e, "kernel_N1": timings[1], "conv2d_int8_sites_N64": sites,
                       "launches_by_path": path_launches}))
-    print(json.dumps({"engine": engine, "export": exported}))
+    print(json.dumps({"engine": engine, "export": exported, "bilinear": bilinear}))
     print(json.dumps({"training": training, "training_path_launches": train_launches}))
     print(json.dumps({"meshgen": meshgen, "cli_data_prep": cli_run, "cli_data_prep_launches": cli_launches}))
     print(json.dumps({"parallel": parallel_run}))

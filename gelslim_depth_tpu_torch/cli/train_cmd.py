@@ -20,8 +20,7 @@ process and device a rank: launch it under torchrun, or once per rank with
 cuda:LOCAL_RANK; naming ``gpu`` and ``--dist_backend`` puts the ranks where
 they say, two on one card included. ``--shard_dataset`` has each rank bake
 its round-robin share of the objects with statistics reduced over the
-ranks. The flag of the module not yet ported (NHWC bakes) is refused with
-exit code 2, never ignored.
+ranks. ``--channels_last`` bakes every split NHWC and trains NHWC.
 """
 
 from __future__ import annotations
@@ -31,12 +30,6 @@ import os
 import sys
 
 from gelslim_depth_tpu_torch.cli.quantize_cmd import GPU_HELP, parse_device
-
-# flag -> the module it needs, which the port does not have yet
-UNPORTED_FLAGS = {
-    "channels_last": "NHWC bakes and the NHWC U-Net (channels_last in gelslim_depth_tpu/data/dataset.py)",
-}
-
 
 def parse_args(argv):
     p = argparse.ArgumentParser(prog="gelslim-depth-tpu-torch train",
@@ -73,7 +66,9 @@ def parse_args(argv):
                    help="With --data_parallel: each rank bakes only its round-robin share of "
                         "the object files instead of replicating the dataset on every rank; "
                         "normalization statistics are reduced over the ranks")
-    p.add_argument("--channels_last", action="store_true", help="not ported yet: refused")
+    p.add_argument("--channels_last", action="store_true",
+                   help="Bake the datasets NHWC and train NHWC (the convs run in "
+                        "torch.channels_last memory format); the same math as NCHW")
     p.add_argument("--bf16_data", action="store_true",
                    help="Store baked tactile images as bfloat16 (halves "
                         "their device memory and gather traffic); "
@@ -135,12 +130,6 @@ def assemble_object_lists(dataset_path: str, exclude_objects=None, limit=None):
 
 def run(argv):
     args = parse_args(argv)
-    refused = [f for f in UNPORTED_FLAGS if getattr(args, f) is not None and getattr(args, f) is not False]
-    if refused:
-        for f in refused:
-            print(f"train --{f}: needs {UNPORTED_FLAGS[f]}, which is not ported to "
-                  "gelslim_depth_tpu_torch yet", file=sys.stderr)
-        return 2
     if args.shard_dataset and not args.data_parallel:
         print("train --shard_dataset: needs --data_parallel", file=sys.stderr)
         return 2
@@ -218,6 +207,7 @@ def _train(args):
         depth_image_blur_kernel=config.depth_image_blur_kernel,
         max_datapoints_per_object=args.max_datapoints_per_object,
         interp_method=config.interp_method,
+        channels_last=args.channels_last,
         image_store_dtype=torch.bfloat16 if args.bf16_data else None,
     )
     mesh = None

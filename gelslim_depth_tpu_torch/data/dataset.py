@@ -22,8 +22,9 @@ Reference semantics kept (ref gelslim_depth/datasets/general_dataset.py):
   (:189-209); val/test receive the train set's parameters;
 - both 'depth_image' and 'depth_images' keys.
 
-Not ported yet: ``channels_last`` (NHWC) bakes and interp methods other
-than 'area'; both raise NotImplementedError.
+The resize is any of ``ops.resize``'s methods, with its weight matrices
+applied in numpy. ``channels_last=True`` stores NHWC ``(N, h, w, C)``
+tensors, as the JAX package's bake does, for ``unet_apply(channels_last=True)``.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ import torch
 from gelslim_depth_tpu_torch.data.pt_io import load_pt
 from gelslim_depth_tpu_torch.ops.image import _gaussian_kernel_1d
 from gelslim_depth_tpu_torch.ops.normalize import depth_norm_coeffs, image_norm_coeffs
-from gelslim_depth_tpu_torch.ops.resize import _area_weight_matrix
+from gelslim_depth_tpu_torch.ops.resize import METHODS, weight_matrix
 from gelslim_depth_tpu_torch.utils.device import resolve_device
 
 
@@ -61,28 +62,29 @@ def _get_depth(data: Dict) -> Optional[np.ndarray]:
 @dataclasses.dataclass
 class BakedDataset:
     """Preprocessed, normalized, device-resident tensors. Statistics are
-    always taken and frozen in float32, whatever the storage dtype."""
+    always taken and frozen in float32, whatever the storage dtype;
+    channels_last=True stores the images NHWC."""
 
-    tactile_image: torch.Tensor  # (N, 3, h, w) normalized
-    depth_image: torch.Tensor    # (N, 1, h, w) normalized, float32
+    tactile_image: torch.Tensor  # (N, 3, h, w) normalized (or NHWC)
+    depth_image: torch.Tensor    # (N, 1, h, w) normalized, float32 (or NHWC)
     object_index: torch.Tensor   # (N,) int32
     depth_normalization_parameters: Tuple[float, float, float, float]
     image_normalization_parameters: Tuple[list, list, list, list]
     input_tactile_image_size: Tuple[int, int]
+    channels_last: bool = False
 
     def __len__(self) -> int:
         return int(self.tactile_image.shape[0])
 
 
-def _np_area_resize(x: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """Host-side adaptive-average resize with the weight matrices of
-    ``ops.area_resize``."""
+def _np_resize(x: np.ndarray, size: Tuple[int, int], method: str = "area") -> np.ndarray:
+    """Host-side resize with the weight matrices of ``ops.resize``."""
     h_in, w_in = x.shape[-2:]
     h_out, w_out = int(size[0]), int(size[1])
     if (h_in, w_in) == (h_out, w_out):
         return x
-    ah = _area_weight_matrix(h_in, h_out)
-    aw = _area_weight_matrix(w_in, w_out)
+    ah = weight_matrix(h_in, h_out, method)
+    aw = weight_matrix(w_in, w_out, method)
     y = np.einsum("oh,...hw->...ow", ah, x, optimize=True)
     return np.einsum("pw,...ow->...op", aw, y, optimize=True).astype(np.float32)
 
@@ -104,6 +106,7 @@ def _preprocess_object(
     separate_fingers: bool,
     target_size: Tuple[int, int],
     depth_image_blur_kernel: int,
+    interp_method: str,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """One object's dict -> (tactile (M,3,h,w), depth (M,1,h,w)) float32."""
     img = _float32(data["tactile_image"])
@@ -121,8 +124,8 @@ def _preprocess_object(
         img = np.concatenate([img[:, 0:3], img[:, 3:6]], axis=0)
         depth = np.concatenate([depth[:, 0:1], depth[:, 1:2]], axis=0)
 
-    img = _np_area_resize(img, target_size)
-    depth = _np_area_resize(depth, target_size)
+    img = _np_resize(img, target_size, interp_method)
+    depth = _np_resize(depth, target_size, interp_method)
     if depth_image_blur_kernel > 1:
         depth = _np_gaussian_blur(depth, depth_image_blur_kernel)
     return img, depth
@@ -170,7 +173,9 @@ def bake_dataset(
     ``cuda`` unless device says otherwise.
 
     Mirrors GeneralDataset's constructor contract (general_dataset.py:12-14);
-    `preloaded` passes dicts directly. image_store_dtype (e.g.
+    `preloaded` passes dicts directly. interp_method is any of
+    ``ops.resize``'s. channels_last stores NHWC (see BakedDataset).
+    image_store_dtype (e.g.
     torch.bfloat16) casts the stored TACTILE images after the float32
     statistics and normalization; depth targets stay float32.
 
@@ -179,10 +184,8 @@ def bake_dataset(
     given: the hook for baking a shard per process with statistics reduced
     over all of them.
     """
-    if channels_last:
-        raise NotImplementedError("channels_last bakes are not ported yet: the port trains NCHW")
-    if interp_method != "area":
-        raise NotImplementedError(f"interp_method {interp_method!r}: only 'area' bakes are ported")
+    if interp_method not in METHODS:
+        raise ValueError(f"interp_method {interp_method!r}: expected one of {METHODS}")
     device = resolve_device(device)
     rng = np.random.RandomState(seed)
 
@@ -211,6 +214,7 @@ def bake_dataset(
             separate_fingers=separate_fingers,
             target_size=target_size,
             depth_image_blur_kernel=depth_image_blur_kernel,
+            interp_method=interp_method,
         )
         if max_datapoints_per_object is not None and img.shape[0] > max_datapoints_per_object:
             sel = rng.permutation(img.shape[0])[:max_datapoints_per_object]
@@ -254,6 +258,9 @@ def bake_dataset(
     tactile_n = torch.from_numpy(tactile * mult + add)
     ds_, db_, dd_ = depth_norm_coeffs(depth_normalization_method, norm_scale, depth_normalization_parameters)
     depth_n = torch.from_numpy(depth * np.float32(ds_ / dd_) + np.float32(-db_ * ds_ / dd_))
+    if channels_last:
+        tactile_n = tactile_n.permute(0, 2, 3, 1).contiguous()
+        depth_n = depth_n.permute(0, 2, 3, 1).contiguous()
     if image_store_dtype is not None:
         tactile_n = tactile_n.to(image_store_dtype)
 
@@ -264,6 +271,7 @@ def bake_dataset(
         depth_normalization_parameters=tuple(depth_normalization_parameters),
         image_normalization_parameters=tuple(image_normalization_parameters),
         input_tactile_image_size=target_size,
+        channels_last=channels_last,
     )
 
 

@@ -51,11 +51,36 @@ def fused_predict(
     return _postprocess(config, net(_preprocess(config, images)), output_size)
 
 
-def _postprocess(config: GelslimConfig, y: torch.Tensor, output_size) -> torch.Tensor:
-    y = ops.denormalize_depth_image(
+def _denormalize(config: GelslimConfig, y: torch.Tensor) -> torch.Tensor:
+    return ops.denormalize_depth_image(
         y, config.depth_normalization_method, config.norm_scale, config.depth_normalization_parameters
     )
-    return ops.resize(y, output_size, config.interp_method)
+
+
+def _postprocess(config: GelslimConfig, y: torch.Tensor, output_size) -> torch.Tensor:
+    return ops.resize(_denormalize(config, y), output_size, config.interp_method)
+
+
+def kernel_front_end(config: GelslimConfig, frames: torch.Tensor, base_frame: Optional[torch.Tensor],
+                     out_size: Tuple[int, int]) -> torch.Tensor:
+    """The diff + area resize + normalize front end as one
+    ``fused_preprocess_dual`` launch: (N, 6, H, W) frames and a shared (6,
+    H, W) base (or None) -> (2N, 3, *out_size), rows [0, N) the left
+    finger's, [N, 2N) the right's."""
+    from gelslim_depth_tpu_torch.ops.kernels import fused_preprocess_dual
+
+    scale, bias, denom = ops.image_norm_coeffs(
+        config.image_normalization_method, config.norm_scale, config.image_normalization_parameters, 3,
+    )
+    use_diff = bool(config.use_difference_image and base_frame is not None)
+    return fused_preprocess_dual(
+        frames.contiguous(),
+        base_frame.contiguous() if use_diff else None,
+        (scale / denom).astype(np.float32),
+        (-bias * scale / denom).astype(np.float32),
+        out_size=out_size,
+        use_diff=use_diff,
+    )
 
 
 def dual_frames_to_fingers(
@@ -95,21 +120,7 @@ def fused_predict_dual(
         use_kernel = frames.is_cuda
     use_kernel = use_kernel and config.interp_method == "area"
     if use_kernel and (base_frame is None or base_frame.ndim == 3):
-        from gelslim_depth_tpu_torch.ops.kernels import fused_preprocess_dual
-
-        scale, bias, denom = ops.image_norm_coeffs(
-            config.image_normalization_method, config.norm_scale,
-            config.image_normalization_parameters, 3,
-        )
-        use_diff = bool(config.use_difference_image and base_frame is not None)
-        x = fused_preprocess_dual(
-            frames.contiguous(),
-            base_frame.contiguous() if use_diff else None,
-            (scale / denom).astype(np.float32),
-            (-bias * scale / denom).astype(np.float32),
-            out_size=config.input_tactile_image_size,
-            use_diff=use_diff,
-        )
+        x = kernel_front_end(config, frames, base_frame, config.input_tactile_image_size)
         depth = _postprocess(config, net(x), output_size)
         # kernel layout: rows [0, n) = left finger, [n, 2n) = right
         return torch.stack([depth[:n, 0], depth[n:, 0]], dim=1)

@@ -26,7 +26,14 @@ the row-split upconv as a 1x1 conv ``(s*s*cout, 1, 1, cin)`` whose column
 ``(di*s + dj)*cout + o`` holds ``w[c, o, di, dj]`` of the reference-layout
 ``(cin, cout, s, s)`` weight. ``hwio_from_ohwi``/``ohwi_from_hwio`` and
 ``rowsplit_to_jax``/``rowsplit_from_jax`` convert to and from the JAX
-package's HWIO and ``(s, cin, s*cout)`` layouts.
+package's HWIO and ``(s, cin, s*cout)`` layouts. ``unet_apply_int8``,
+``calibrate_act_scales`` and ``quantize_unet`` take ``channels_last``:
+NHWC inputs (and NHWC logits out), as the JAX package's do.
+
+Height-sharded serving (``parallel.make_spatial_predictor_int8``) passes
+``QuantizedUNet.forward`` a ``halo``: each 3x3 conv then runs on its input
+padded with the neighbouring bands' edge rows, ``pad=1`` on that, and
+drops the two rows the extra padding adds.
 """
 
 from __future__ import annotations
@@ -186,12 +193,13 @@ def calibrate_act_scales(
     *,
     percentile: float = 100.0,
     quantize_upconvs: bool = False,
+    channels_last: bool = False,
 ) -> Dict[str, float]:
     """Static per-tensor activation scales from a float32 eval forward of
-    ``net`` (a float32 ``UNet``, TF32 off) over a representative NCHW batch:
-    ``stat(|x|) / 127`` at each quantized site's input, or 1 where that is
-    0. stat is the max (percentile 100) or the given percentile.
-    quantize_upconvs also records ``up_j/upconv`` sites."""
+    ``net`` (a float32 ``UNet``, TF32 off) over a representative NCHW batch
+    (NHWC with channels_last): ``stat(|x|) / 127`` at each quantized site's
+    input, or 1 where that is 0. stat is the max (percentile 100) or the
+    given percentile. quantize_upconvs also records ``up_j/upconv`` sites."""
     if net.compute_dtype != torch.float32:
         raise ValueError("calibration runs the float32 forward: pass a float32 UNet")
     cfg = net.cfg
@@ -205,8 +213,13 @@ def calibrate_act_scales(
             a = h.abs()
             record[site] = a.amax() if percentile >= 100.0 else _percentile(a, percentile)
 
-    net(calib_x.float(), probe=probe)
+    # an NCHW copy: the scales are the NCHW forward's, whatever the layout
+    net(_nchw(calib_x, channels_last).float().contiguous(), probe=probe)
     return {k: float(v) / 127.0 if float(v) > 0 else 1.0 for k, v in sorted(record.items())}
+
+
+def _nchw(x: torch.Tensor, channels_last: bool) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2) if channels_last else x
 
 
 def _double_conv(net: UNet, block: str) -> DoubleConv:
@@ -313,15 +326,22 @@ class QuantizedUNet(nn.Module):
             self._float_cache = {key: ws}
         return self._float_cache[key]
 
-    def _int8(self, site: str, qx: torch.Tensor, dtype: torch.dtype, consumers=(), *, qx2=None, offset=(0, 0)):
+    def _int8(self, site: str, qx: torch.Tensor, dtype: torch.dtype, consumers=(), *, qx2=None, offset=(0, 0),
+              halo=None):
         """One quantized conv of a DoubleConv, its BN and activation fused.
         With ``consumers``, it stores its output int8 at each consumer
         site's activation scale (the buffers ``set_act_scales`` overwrites
-        in place) and returns those; else the output in ``dtype``."""
+        in place) and returns those; else the output in ``dtype``. With
+        halo, qx (and qx2) gain their neighbours' edge rows (int8 zeros at
+        the image's edges, the conv's own padding: quantization is
+        symmetric), and the two output rows that pad=1 adds are dropped."""
         block, conv = site.split("/")
         dc = _double_conv(self.net, block)
         i = int(conv[-1]) - 1
-        return conv2d_int8(
+        if halo is not None:
+            qx = halo(qx, 1)
+            qx2 = None if qx2 is None else halo(qx2, 1)
+        out = conv2d_int8(
             qx, self.w8(site), pad=1, scale=self._escale(site), qx2=qx2, offset=offset,
             epilogue=Epilogue(
                 bn_mul=getattr(dc, f"bn{i}_scale").view(-1), bn_add=getattr(dc, f"bn{i}_shift").view(-1),
@@ -329,10 +349,15 @@ class QuantizedUNet(nn.Module):
                 q_scales=tuple(self.act_scale(c) for c in consumers), store_float=not consumers,
             ),
         )
+        if halo is None:
+            return out
+        crop = lambda t: t[:, 1:-1].contiguous()  # noqa: E731
+        return tuple(crop(t) for t in out) if consumers else crop(out)
 
     @torch.no_grad()
-    def forward(self, x: torch.Tensor, compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-        """NCHW float input -> NCHW float32 logits, the int8 eval forward.
+    def forward(self, x: torch.Tensor, compute_dtype: torch.dtype = torch.bfloat16, halo=None) -> torch.Tensor:
+        """NCHW float input -> NCHW float32 logits, the int8 eval forward
+        (of this rank's band of rows, with halo: see the module's docstring).
 
         Every int8 conv stores what its consumers read: int8 at the next
         conv's scale, and at the skip's consumer ``up_j/conv1``'s scale as
@@ -357,13 +382,17 @@ class QuantizedUNet(nn.Module):
         with full_precision(dtype):
             inc = self.net.inc
             act = inc.double_conv[2]
-            y = F.conv2d(x.to(dtype).contiguous(memory_format=torch.channels_last), ws["inc"], padding=1)
+            x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+            if halo is None:
+                y = F.conv2d(x, ws["inc"], padding=1)
+            else:
+                y = F.conv2d(halo(x, 2), ws["inc"], padding=(0, 1))
             q = quant_act(nhwc(act(y * inc.bn0_scale + inc.bn0_shift).to(dtype)), self.act_scale("inc/conv2"))
 
             def to_upconv(site, q, j):  # the site's output as up_j's upconv reads it
                 if up8:
-                    return self._int8(site, q, dtype, (f"up_{j}/upconv",))[0]
-                return self._int8(site, q, dtype)
+                    return self._int8(site, q, dtype, (f"up_{j}/upconv",), halo=halo)[0]
+                return self._int8(site, q, dtype, halo=halo)
 
             # level l's block (inc, then down_0 ...) stores its skip at its
             # consumer up_{L-2-l}/conv1's scale and its pre-pool output at
@@ -371,9 +400,10 @@ class QuantizedUNet(nn.Module):
             skips = []
             for level, block in enumerate(["inc"] + [f"down_{i}" for i in range(L - 1)]):
                 if level > 0:
-                    (q,) = self._int8(f"{block}/conv1", q, dtype, (f"{block}/conv2",))
+                    (q,) = self._int8(f"{block}/conv1", q, dtype, (f"{block}/conv2",), halo=halo)
                 if level < L - 1:
-                    skip, pre = self._int8(f"{block}/conv2", q, dtype, (f"up_{L - 2 - level}/conv1", f"down_{level}/conv1"))
+                    skip, pre = self._int8(f"{block}/conv2", q, dtype, (f"up_{L - 2 - level}/conv1", f"down_{level}/conv1"),
+                                           halo=halo)
                     skips.append(skip)
                     q = max_pool_int8(pre, cfg.maxpool_size)
                 else:
@@ -392,8 +422,9 @@ class QuantizedUNet(nn.Module):
                     y = F.conv_transpose2d(nchw(h).to(dtype), ws[name], stride=self._up(name).stride)
                     yq = quant_act(nhwc(y + ws[f"{name}_b"]), self.act_scale(f"{name}/conv1"))
                 dy, dx = skip.shape[1] - yq.shape[1], skip.shape[2] - yq.shape[2]
-                (q,) = self._int8(f"{name}/conv1", skip, dtype, (f"{name}/conv2",), qx2=yq, offset=(dy // 2, dx // 2))
-                h = self._int8(f"{name}/conv2", q, dtype) if j == L - 2 else to_upconv(f"{name}/conv2", q, j + 1)
+                (q,) = self._int8(f"{name}/conv1", skip, dtype, (f"{name}/conv2",), qx2=yq, offset=(dy // 2, dx // 2),
+                                  halo=halo)
+                h = self._int8(f"{name}/conv2", q, dtype, halo=halo) if j == L - 2 else to_upconv(f"{name}/conv2", q, j + 1)
 
             out = F.conv2d(nchw(h), ws["outc"]) + ws["outc_b"]
             return out.float().contiguous()
@@ -407,10 +438,12 @@ def max_pool_int8(q: torch.Tensor, p: int) -> torch.Tensor:
     return q[:, : ho * p, : wo * p].reshape(n, ho, p, wo, p, c).amax(dim=(2, 4))
 
 
-def unet_apply_int8(q: QuantizedUNet, x: torch.Tensor, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
+def unet_apply_int8(q: QuantizedUNet, x: torch.Tensor, *, channels_last: bool = False,
+                    compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Eval forward with the quantized weights: NCHW in, NCHW float32
-    logits out, as ``UNet.forward``."""
-    return q(x, compute_dtype)
+    logits out, as ``UNet.forward``; NHWC in and out with channels_last."""
+    y = q(_nchw(x, channels_last), compute_dtype)
+    return y.permute(0, 2, 3, 1) if channels_last else y
 
 
 @torch.no_grad()
@@ -429,12 +462,14 @@ def quantize_unet(
     *,
     percentile: float = 100.0,
     quantize_upconvs: bool = False,
+    channels_last: bool = False,
 ) -> QuantizedUNet:
     """Calibrate and quantize a float32 ``UNet``; ``float_delta`` reports
-    the output RMSE against the float32 graph on the calibration batch.
-    quantize_upconvs also runs the transposed convs on the int8 path,
-    where their kernel equals their stride."""
+    the output RMSE against the float32 graph on the calibration batch
+    (NHWC with channels_last). quantize_upconvs also runs the transposed
+    convs on the int8 path, where their kernel equals their stride."""
     cfg = net.cfg
+    calib_x = _nchw(calib_x, channels_last).contiguous()
     quantize_upconvs = quantize_upconvs and bool(_upconv_sites(cfg))
     act_scale = calibrate_act_scales(
         net, calib_x, percentile=percentile, quantize_upconvs=quantize_upconvs

@@ -38,7 +38,11 @@ train mode (batch statistics, optionally mask-weighted, and a functional
 running-stat update) or in eval mode (the BN folded on the fly, so it
 follows parameters and statistics that change every step). Its float32
 parameters are cast to the compute dtype inside the forward, so bfloat16
-gradients land on float32 masters. ``init_unet`` and
+gradients land on float32 masters. ``channels_last=True`` takes and
+returns NHWC tensors, as the JAX package's does: their NCHW views are
+in ``torch.channels_last`` memory format, which cuDNN's bfloat16 convs
+read with no layout transpose (its float32 ones still transpose; PERF.md
+has the times). ``init_unet`` and
 ``reinit_weights_normal`` make a fresh model from a ``torch.Generator``.
 """
 
@@ -344,14 +348,24 @@ def _batch_norm(y, prefix, i, params, stats, train, sample_weight, reduce=None, 
     return (yf - _c(m)) * _c(torch.rsqrt(v + BN_EPS)) * _c(scale) + _c(bias), m, v
 
 
-def _double_conv(x, prefix, *, params, stats, act, train, dtype, sample_weight, reduce=None, n_samples=None):
+def _conv_pad1(x, w, halo=None):
+    """The DoubleConv's conv, zero padding 1; with halo (height-sharded
+    serving) the rows above and below come from the neighbouring bands,
+    and only the width is zero-padded."""
+    if halo is None:
+        return F.conv2d(x, w, padding=1)
+    return F.conv2d(halo(x, 2), w, padding=(0, 1))
+
+
+def _double_conv(x, prefix, *, params, stats, act, train, dtype, sample_weight, reduce=None, n_samples=None,
+                 halo=None):
     """(conv -> BN -> activation) x 2 as a pure function: returns (y, the
     block's new running statistics | None). It mutates nothing, so
     recomputing it under torch.utils.checkpoint updates no statistic twice."""
-    y = F.conv2d(x.to(dtype), params[f"{prefix}.0.weight"].to(dtype), padding=1)
+    y = _conv_pad1(x.to(dtype), params[f"{prefix}.0.weight"].to(dtype), halo)
     y, m1, v1 = _batch_norm(y, prefix, 1, params, stats, train, sample_weight, reduce, n_samples)
     y = act(y).to(dtype)
-    y = F.conv2d(y, params[f"{prefix}.3.weight"].to(dtype), padding=1)
+    y = _conv_pad1(y, params[f"{prefix}.3.weight"].to(dtype), halo)
     y, m2, v2 = _batch_norm(y, prefix, 4, params, stats, train, sample_weight, reduce, n_samples)
     y = act(y).to(dtype)
     if not train:
@@ -386,6 +400,8 @@ def unet_apply(
     remat: bool = False,
     sample_mask: Optional[torch.Tensor] = None,
     reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    channels_last: bool = False,
+    halo: Optional[Callable[[torch.Tensor, int], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, BatchStats]:
     """Run the U-Net on NCHW x over reference-layout dictionaries: params
     (conv kernels and biases, BN weight and bias) and batch_stats (BN
@@ -406,7 +422,19 @@ def unet_apply(
     rank's rows of a global batch, and every train-mode batch statistic,
     and the running variance's sample count, is taken over all the ranks'
     rows, so the ranks normalize alike and equal the single-device math on
-    the global batch. Without it the statistics are this call's alone."""
+    the global batch. Without it the statistics are this call's alone.
+
+    channels_last=True takes NHWC x and returns NHWC logits; the graph runs
+    on x's NCHW view in ``torch.channels_last`` memory format (no copy).
+
+    halo, for height-sharded serving (``parallel.make_spatial_predictor``),
+    pads a tensor's dim (2 here) with one row above and one below from the
+    neighbouring bands, zeros at the image's edges: every 3x3 conv then
+    reads it and pads only the width, so x is this rank's band of rows and
+    the output its band of the whole image's logits. The max-pools and
+    transposed convs need no halo on the bands of ``spatial_band_plan``."""
+    if channels_last:
+        x = x.permute(0, 3, 1, 2)
     sample_weight = None
     if train and sample_mask is not None:
         sample_weight = sample_mask.to(torch.float32).view(-1, 1, 1, 1)
@@ -417,7 +445,7 @@ def unet_apply(
     dtype = compute_dtype
     dc = functools.partial(_double_conv, params=params, stats=batch_stats, act=_activation_fn(cfg.activation),
                            train=train, dtype=dtype, sample_weight=sample_weight,
-                           reduce=reduce if train else None, n_samples=n_samples)
+                           reduce=reduce if train else None, n_samples=n_samples, halo=halo)
     new_stats = dict(batch_stats) if train else batch_stats
 
     def run_dc(h, prefix):
@@ -441,4 +469,5 @@ def unet_apply(
             h = run_dc(torch.cat([skip.to(dtype), y], dim=1), f"up.{j}.conv.double_conv")
         out = F.conv2d(h.to(dtype), params["outc.conv.weight"].to(dtype))
         out = out + _c(params["outc.conv.bias"].to(out.dtype))
-    return out.to(torch.promote_types(out.dtype, torch.float32)), new_stats
+    out = out.to(torch.promote_types(out.dtype, torch.float32))
+    return (out.permute(0, 2, 3, 1) if channels_last else out), new_stats

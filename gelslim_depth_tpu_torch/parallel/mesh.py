@@ -15,8 +15,14 @@ Serving and rendering need no collective: each rank runs the port's own
 path on its rows, the ``fused_preprocess_dual`` kernel and, for int8,
 ``conv2d_int8`` included (JAX ``shard_map``s its kernel per device for the
 same reason); ``gather_rows`` collects the rows in rank order for callers
-that want the whole batch. The height-sharded predictors
-(``make_spatial_predictor[_int8]``) are not ported yet.
+that want the whole batch.
+
+Height-sharded serving (``make_spatial_predictor[_int8]``) splits one
+frame's rows over the ranks instead, for the latency of a single frame.
+JAX lets GSPMD derive the halo exchanges from a height sharding of
+global arrays; torch has no global array, so ``spatial_band_plan`` is the
+contract (which rows each rank is fed and returns) and ``HeightHalo`` the
+exchange, one before every 3x3 conv.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import dataclasses
 import functools
 import hashlib
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +39,7 @@ import torch.distributed as dist
 import torch.nn as nn
 
 from gelslim_depth_tpu_torch.models.unet import UNetConfig, unet_apply
+from gelslim_depth_tpu_torch.ops.resize import resize_rows, support, weight_matrix
 from gelslim_depth_tpu_torch.parallel import multihost
 from gelslim_depth_tpu_torch.utils.device import resolve_device
 
@@ -271,3 +278,237 @@ def make_dp_renderer(mesh: Mesh, *, spec, image_size=(320, 427), mm_per_pixel: f
                                   invert_affine=invert_affine, lr_flip=lr_flip, device=mesh.device)
 
     return render
+
+
+# ---------------------------------------------------------------------------
+# height-sharded serving
+# ---------------------------------------------------------------------------
+
+Rows = Tuple[Tuple[int, int], ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class BandPlan:
+    """Which rows each rank of a height-sharded predictor holds, as
+    [start, end) pairs indexed by rank: ``levels[l]`` the U-Net's level l
+    (level 0 the net input), ``frame_rows`` the frame rows a rank is fed,
+    ``output_rows`` the output rows it returns. ``kernel_front_end``: the
+    bands' own area windows are the global ones (an integer frame-to-net
+    height ratio), so the ``fused_preprocess_dual`` kernel runs on each
+    band as it is; else the front end is composed over the global windows'
+    rows. ``local_back_end``: each rank's output rows read only its own net
+    rows, so the resize back runs on the band alone; else every rank reads
+    the gathered net output."""
+
+    frame_hw: Tuple[int, int]
+    net_hw: Tuple[int, int]
+    output_hw: Tuple[int, int]
+    interp_method: str
+    levels: Tuple[Rows, ...]
+    frame_rows: Rows
+    output_rows: Rows
+    kernel_front_end: bool
+    local_back_end: bool
+
+    @property
+    def net_rows(self) -> Rows:
+        return self.levels[0]
+
+
+def spatial_band_plan(mesh, frame_hw, net_hw, output_hw, unet_cfg: UNetConfig,
+                      interp_method: str = "area") -> BandPlan:
+    """The bands of height-sharded serving over mesh.size ranks (mesh: a
+    ``Mesh`` or a rank count), built from the bottom level up, because the
+    U-Net pools. With L levels and pool m the net heights are h_0 = net_h,
+    h_{l+1} = floor(h_l / m). The bottom level's h_{L-1} rows split over
+    the ranks by ``Mesh.rows``' rule (the first ranks take one more); a
+    boundary b there sits at b * m^(L-1-l) on level l, and the last band
+    runs to h_l. So every band but the last has a height that is a
+    multiple of m on every level: a band's floor-mode max-pool is the
+    global one, and the transposed conv (kernel = stride = m) needs no
+    halo; the last band holds the floor's dropped rows and the ``Up``
+    block's bottom pad, which is all of it (dy // 2 = 0 for m = 2).
+    Flagship, 4 ranks: bottom 10 rows -> (3, 3, 2, 2), net 160 rows ->
+    (48, 48, 32, 32), frames 320 -> (96, 96, 64, 64).
+
+    Frame rows are the rows the rank's net rows' resize windows read
+    (``ops.resize.support``; overlapping where the ratio is not an
+    integer); output rows go to the rank whose net rows hold their
+    window's first row.
+
+    Raises ValueError for a U-Net whose pools or transposed convs would
+    need halos (kernel 3, pool 2, stride 2 only), and when a rank would
+    get no bottom row, or no frame or output row."""
+    size = mesh.size if isinstance(mesh, Mesh) else int(mesh)
+    (fh, fw), (nh, nw), (oh, ow) = (tuple(int(v) for v in hw) for hw in (frame_hw, net_hw, output_hw))
+    k, m, s = unet_cfg.kernel_size, unet_cfg.maxpool_size, unet_cfg.upconv_stride
+    if (k, m, s) != (3, 2, 2):
+        raise ValueError(f"spatial_band_plan: kernel {k}, pool {m}, upconv stride {s}: height bands need "
+                         "kernel 3 (one halo row), pool 2 and upconv stride 2 (no halo)")
+    heights = [nh]
+    for _ in range(unet_cfg.num_levels - 1):
+        heights.append(heights[-1] // m)
+    if heights[-1] < size:
+        raise ValueError(f"spatial_band_plan: {size} ranks over a {nh}-row net input, whose levels have "
+                         f"{' -> '.join(map(str, heights))} rows: fewer bottom rows than ranks")
+    per, extra = divmod(heights[-1], size)
+    bottom = [r * per + min(r, extra) for r in range(size)]
+    levels = []
+    for level, h in enumerate(heights):
+        b = [x * m ** (len(heights) - 1 - level) for x in bottom] + [h]
+        levels.append(tuple(zip(b[:-1], b[1:])))
+    net_rows = levels[0]
+    frame_rows = tuple(support(fh, nh, interp_method, rows) for rows in net_rows)
+    starts = (weight_matrix(nh, oh, interp_method) != 0).argmax(axis=1)  # each output row's first input row
+    o = [int(np.searchsorted(starts, a, "left")) for a, _ in net_rows[1:]]
+    output_rows = tuple(zip([0] + o, o + [oh]))
+    if any(b <= a for a, b in output_rows):
+        raise ValueError(f"spatial_band_plan: {size} ranks over {oh} output rows leave a rank none: {output_rows}")
+    local = all(net_rows[r][0] <= lo and hi <= net_rows[r][1]
+                for r, (lo, hi) in enumerate(support(nh, oh, interp_method, rows) for rows in output_rows))
+    return BandPlan((fh, fw), (nh, nw), (oh, ow), interp_method, tuple(levels), frame_rows, output_rows,
+                    interp_method == "area" and fh % nh == 0, local)
+
+
+class HeightHalo:
+    """The halo exchange of height-sharded serving: ``halo(x, dim)`` is x
+    with the last row of the rank above before it and the first row of the
+    rank below after it along dim, zeros at the image's top and bottom
+    edges (the conv's own zero padding). One all-reduce of a zero-filled
+    (ranks, 2, *row) buffer into which each rank writes its two edge rows
+    (adding zeros is exact), so it runs on gloo with CUDA tensors as on
+    NCCL, int8 included, and moves 2 rows a rank; a mesh of one rank pads
+    with zeros and runs no collective. ``exchanges`` counts the calls;
+    every rank makes the same ones."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.exchanges = 0
+
+    def __call__(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        self.exchanges += 1
+        first, last = x.narrow(dim, 0, 1), x.narrow(dim, x.shape[dim] - 1, 1)
+        rank, size = self.mesh.rank, self.mesh.size
+        top = bottom = torch.zeros_like(first)
+        if size > 1:
+            buf = x.new_zeros((size, 2, *first.shape))
+            buf[rank, 0], buf[rank, 1] = first, last
+            dist.all_reduce(buf, group=self.mesh.group)
+            if rank > 0:
+                top = buf[rank - 1, 1]
+            if rank < size - 1:
+                bottom = buf[rank + 1, 0]
+        return torch.cat([top, x, bottom], dim)
+
+
+def shard_height(mesh: Mesh, plan: BandPlan, frames, base=None):
+    """This rank's frame rows (``plan.frame_rows``) of (N, 6, H, W) frames
+    and of a (6, H, W) or (N, 6, H, W) base, on mesh.device."""
+    f0, f1 = plan.frame_rows[mesh.rank]
+    band = torch.as_tensor(frames)[:, :, f0:f1].to(mesh.device)
+    return band, None if base is None else torch.as_tensor(base)[..., f0:f1, :].to(mesh.device)
+
+
+def gather_height(mesh: Mesh, band: torch.Tensor) -> torch.Tensor:
+    """Every rank's (N, C, rows, W) band, stacked in rank order along the
+    height, on every rank (``gather_rows`` along dim 2)."""
+    if mesh.group is None:
+        return band
+    return multihost.all_gather_rows(band.movedim(2, 0).contiguous(), mesh.group).movedim(0, 2).contiguous()
+
+
+def _spatial_graph(config, plan: BandPlan, mesh: Mesh, net, frames, base, use_kernel):
+    """This rank's band of the dual-frame graph: the front end on its frame
+    rows, net (the U-Net on the band, exchanging halos), the denormalize,
+    and the resize back to its output rows. -> (N, 2, rows, W_out) mm."""
+    from gelslim_depth_tpu_torch import ops
+    from gelslim_depth_tpu_torch.inference import _denormalize, dual_frames_to_fingers, kernel_front_end
+
+    n, r = frames.shape[0], mesh.rank
+    (f0, f1), (s0, e0), (o0, o1) = plan.frame_rows[r], plan.net_rows[r], plan.output_rows[r]
+    if tuple(frames.shape[2:]) != (f1 - f0, plan.frame_hw[1]):
+        raise ValueError(f"rank {r} is fed frame rows [{f0}, {f1}) of {plan.frame_hw}: want (N, 6, {f1 - f0}, "
+                         f"{plan.frame_hw[1]}) frames, got {tuple(frames.shape)}")
+    if use_kernel is None:
+        use_kernel = frames.is_cuda
+    if use_kernel and plan.kernel_front_end:
+        if base is not None and base.ndim == 4:  # as _dual_graph: subtract here, the kernel sees a zero base
+            frames, base = (frames - base, torch.zeros_like(base[0])) if config.use_difference_image else (frames, None)
+        y = net(kernel_front_end(config, frames, base, (e0 - s0, plan.net_hw[1])))
+        split = True  # rows [0, n) the left finger's, [n, 2n) the right's
+    else:
+        fingers = dual_frames_to_fingers(config, frames, base)
+        x = resize_rows(fingers, plan.frame_hw[0], plan.net_hw, (s0, e0), f0, plan.interp_method)
+        y = net(ops.normalize_tactile_image(x, config.image_normalization_method, config.norm_scale,
+                                            config.image_normalization_parameters))
+        split = False  # rows interleave left and right
+    y = _denormalize(config, y)
+    if plan.local_back_end:
+        depth = resize_rows(y, plan.net_hw[0], plan.output_hw, (o0, o1), s0, plan.interp_method)
+    else:
+        depth = resize_rows(gather_height(mesh, y), plan.net_hw[0], plan.output_hw, (o0, o1), 0, plan.interp_method)
+    if split:
+        return torch.stack([depth[:n, 0], depth[n:, 0]], dim=1)
+    return depth.reshape(n, 2, o1 - o0, plan.output_hw[1])
+
+
+def make_spatial_predictor(config, unet_cfg: UNetConfig, mesh: Mesh, output_size, *, compute_dtype=torch.float32,
+                           frame_size=None, use_kernel: Optional[bool] = None):
+    """Single-frame latency scaling: one frame's HEIGHT split over the
+    ranks, weights replicated (JAX's ``make_spatial_predictor``). Each
+    rank runs the whole dual-frame graph on its band of rows
+    (``spatial_band_plan`` for frames of frame_size, default output_size):
+    the ``fused_preprocess_dual`` kernel on its frame rows where the bands'
+    area windows are the global ones (use_kernel None: on CUDA), the
+    composed front end over the global windows' rows otherwise; the U-Net
+    through ``unet_apply(halo=...)``, one ``HeightHalo`` exchange before
+    each of its 3x3 convs; the resize back on its own rows, or from the
+    gathered net output where output windows straddle bands.
+
+    Returns predict(params, batch_stats, frames_band, base_band) -> this
+    rank's (N, 2, rows, W_out) mm depth: frames_band its
+    ``plan.frame_rows`` of the (N, 6, H, W) frames (``shard_height``),
+    base_band those rows of the base. predict.plan is the plan,
+    predict.halo the exchange; ``gather_height`` stacks the bands."""
+    plan = spatial_band_plan(mesh, tuple(frame_size or output_size), config.input_tactile_image_size, output_size,
+                             unet_cfg, config.interp_method)
+    halo = HeightHalo(mesh)
+
+    @torch.inference_mode()
+    def predict(params, batch_stats, frames_band, base_band):
+        def net(x):
+            return unet_apply(unet_cfg, params, batch_stats, x, compute_dtype=compute_dtype, halo=halo)[0]
+
+        return _spatial_graph(config, plan, mesh, net, frames_band.to(mesh.device, torch.float32),
+                              None if base_band is None else base_band.to(mesh.device, torch.float32), use_kernel)
+
+    predict.plan, predict.halo = plan, halo
+    return predict
+
+
+def make_spatial_predictor_int8(config, mesh: Mesh, output_size, *, compute_dtype=torch.bfloat16, frame_size=None,
+                                use_kernel: Optional[bool] = None):
+    """Height-sharded serving of the int8 graph: ``make_spatial_predictor``
+    with the QuantizedUNet's forward on each band, given a ``HeightHalo``:
+    ``inc/conv1`` a float conv on the haloed band, each of the 17 quantized
+    convs a ``conv2d_int8`` launch on the haloed int8 band (``up_j/conv1``
+    reading skip and upconv output in place, both haloed), the max-pools
+    per band. As ``make_dp_fused_predictor_int8``, the model comes at each
+    call.
+
+    Returns predict(q, frames_band, base_band) -> this rank's (N, 2, rows,
+    W_out) mm depth."""
+    plan = spatial_band_plan(mesh, tuple(frame_size or output_size), config.input_tactile_image_size, output_size,
+                             config.unet_config(), config.interp_method)
+    halo = HeightHalo(mesh)
+
+    @torch.inference_mode()
+    def predict(q, frames_band, base_band):
+        def net(x):
+            return q(x, compute_dtype, halo=halo)
+
+        return _spatial_graph(config, plan, mesh, net, frames_band.to(mesh.device, torch.float32),
+                              None if base_band is None else base_band.to(mesh.device, torch.float32), use_kernel)
+
+    predict.plan, predict.halo = plan, halo
+    return predict

@@ -36,12 +36,18 @@ rank's datasets hold only its shard (bake it with
 each rank shuffles its shard with seed + 7919 * rank, the largest shard
 sets the steps of an epoch (gathered once, at construction), and smaller
 shards pad their tail under mask False. Only rank 0 writes logs, plots,
-checkpoints and the resume file. The profiler trace of the first epoch is
-not ported yet.
+checkpoints and the resume file.
+
+The train split's bake sets the run's layout: an NHWC bake
+(``bake_dataset(channels_last=True)``) runs every step NHWC, and a val or
+test split baked otherwise is refused. ``profile_first_epoch`` records a
+``torch.profiler`` trace of epoch 0's train pass under
+``output_dir/profile`` (``utils.profiling.trace``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -67,6 +73,7 @@ from gelslim_depth_tpu_torch.train.steps import (
     train_epoch,
 )
 from gelslim_depth_tpu_torch.utils.device import resolve_device
+from gelslim_depth_tpu_torch.utils.profiling import trace
 
 
 def sharded_epoch_indices(n_local: int, n_steps: int, local_bs: int, seed: int):
@@ -100,6 +107,7 @@ class Trainer:
         enable_plots: bool = True,
         resume_every_epochs: Optional[int] = None,
         remat: bool = False,
+        profile_first_epoch: bool = False,
     ):
         self.config = config
         self.unet_cfg = config.unet_config()
@@ -115,6 +123,15 @@ class Trainer:
         # rank 0 owns every file the run writes
         self.is_main = mesh is None or mesh.rank == 0
         self.train_ds, self.val_ds, self.test_ds = train_ds, val_ds, test_ds
+        # the train split's baked layout is the run's
+        self.channels_last = bool(getattr(train_ds, "channels_last", False))
+        for split_name, ds in (("val", val_ds), ("test", test_ds)):
+            if bool(getattr(ds, "channels_last", False)) != self.channels_last:
+                raise ValueError(
+                    f"{split_name} split layout (channels_last={getattr(ds, 'channels_last', False)}) differs "
+                    f"from the train split ({self.channels_last}); bake all splits alike"
+                )
+        self.profile_first_epoch = profile_first_epoch
         self.output_dir = output_dir
         self.compute_dtype = compute_dtype
         self.log_fn = log_fn
@@ -142,14 +159,16 @@ class Trainer:
                                             generator=torch.Generator().manual_seed(seed), device=self.device)
         if mesh is None:
             self._train_step = make_train_step(self.unet_cfg, self.optimizer, compute_dtype=compute_dtype,
-                                               masked=True, remat=remat)
-            self._eval_step = make_eval_step(self.unet_cfg, compute_dtype=compute_dtype, masked=True)
+                                               masked=True, remat=remat, channels_last=self.channels_last)
+            self._eval_step = make_eval_step(self.unet_cfg, compute_dtype=compute_dtype, masked=True,
+                                             channels_last=self.channels_last)
         else:
             from gelslim_depth_tpu_torch.parallel import gather_rows, replicate
 
             self._train_step = make_dp_train_step(self.unet_cfg, self.optimizer, mesh, compute_dtype=compute_dtype,
-                                                  masked=True, remat=remat)
-            self._eval_step = make_dp_eval_step(self.unet_cfg, mesh, compute_dtype=compute_dtype, masked=True)
+                                                  masked=True, remat=remat, channels_last=self.channels_last)
+            self._eval_step = make_dp_eval_step(self.unet_cfg, mesh, compute_dtype=compute_dtype, masked=True,
+                                                channels_last=self.channels_last)
             self.state = replicate(mesh, self.state)
             # a global batch of batch_size rounded up to a multiple of the ranks
             self._local_bs = -(-config.batch_size // mesh.size)
@@ -248,7 +267,9 @@ class Trainer:
         # a run resumed at or past max_epochs runs no epoch
         while not stop and not (max_epochs is not None and self.epoch >= max_epochs):
             t0 = time.time()
-            train_loss = self._train_epoch(seed=1000 + self.epoch)
+            with (trace(os.path.join(self.output_dir, "profile")) if self.profile_first_epoch and self.epoch == 0
+                  else contextlib.nullcontext()):
+                train_loss = self._train_epoch(seed=1000 + self.epoch)
             val_loss = self._eval_epoch(self.val_ds, seed=2000 + self.epoch)
             test_loss = self._eval_epoch(self.test_ds, seed=3000 + self.epoch)
 
@@ -412,7 +433,10 @@ class Trainer:
             sel = torch.as_tensor(idx, device=ds.tactile_image.device)
             img = ds.tactile_image.index_select(0, sel).to(self.device)
             dep = ds.depth_image.index_select(0, sel)
-            pred, _ = unet_apply(self.unet_cfg, self.state.ema.shadow, self.state.batch_stats, img)
+            pred, _ = unet_apply(self.unet_cfg, self.state.ema.shadow, self.state.batch_stats, img,
+                                 channels_last=self.channels_last)
+            if self.channels_last:  # -> NCHW for display
+                img, pred, dep = (t.permute(0, 3, 1, 2) for t in (img, pred, dep))
             img_np = self._display_inputs(img)
             pred_np, dep_np = pred.cpu().numpy(), dep.float().cpu().numpy()
             fig, axes = plt.subplots(len(idx), 3, figsize=(10, 10), squeeze=False)

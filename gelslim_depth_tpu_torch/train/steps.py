@@ -23,6 +23,8 @@ backward, as the JAX package differentiates at ``Precision.HIGHEST``.
 ``make_dp_train_step`` and ``make_dp_eval_step`` run the same steps over
 the ranks of a ``parallel.Mesh``, each rank on its own rows of a global
 batch (the port of ``gelslim_depth_tpu/parallel/mesh.py``'s DP steps).
+Every step takes ``channels_last``: NHWC images and targets, as
+``unet_apply(channels_last=True)`` takes them.
 """
 
 from __future__ import annotations
@@ -170,15 +172,17 @@ class TrainStep:
     keeps padded samples out of the loss AND the batch statistics
     (mask-weighted BN in unet_apply), so a padded batch's update equals the
     ragged batch's. remat=True recomputes each DoubleConv in the backward.
+    channels_last=True takes NHWC images and targets.
 
     Its two halves, ``loss_and_grads`` and ``apply_updates``, are public so
     that a profiler can time the forward + backward apart from the
     optimizer + EMA."""
 
     def __init__(self, unet_cfg: UNetConfig, optimizer: Adam, *, compute_dtype=torch.float32,
-                 masked: bool = False, remat: bool = False):
+                 masked: bool = False, remat: bool = False, channels_last: bool = False):
         self.unet_cfg, self.optimizer = unet_cfg, optimizer
         self.compute_dtype, self.masked, self.remat = compute_dtype, masked, remat
+        self.channels_last = channels_last
 
     def loss_and_grads(self, state: TrainState, images, targets, valid_mask=None):
         """-> (loss, new batch stats, gradients by parameter name)."""
@@ -188,6 +192,7 @@ class TrainStep:
             pred, new_stats = unet_apply(
                 self.unet_cfg, params, state.batch_stats, images, train=True,
                 compute_dtype=self.compute_dtype, remat=self.remat, sample_mask=mask,
+                channels_last=self.channels_last,
             )
             loss = mse_loss(pred, targets, mask)
             grads = torch.autograd.grad(loss, list(params.values()))
@@ -220,8 +225,9 @@ class TrainStep:
 
 
 def make_train_step(unet_cfg: UNetConfig, optimizer: Adam, *, compute_dtype=torch.float32,
-                    masked: bool = False, remat: bool = False) -> TrainStep:
-    return TrainStep(unet_cfg, optimizer, compute_dtype=compute_dtype, masked=masked, remat=remat)
+                    masked: bool = False, remat: bool = False, channels_last: bool = False) -> TrainStep:
+    return TrainStep(unet_cfg, optimizer, compute_dtype=compute_dtype, masked=masked, remat=remat,
+                     channels_last=channels_last)
 
 
 def _squared_error_and_count(pred, target, valid_mask):
@@ -272,6 +278,7 @@ class DPTrainStep(TrainStep):
             pred, new_stats = unet_apply(
                 self.unet_cfg, params, state.batch_stats, images, train=True, compute_dtype=self.compute_dtype,
                 remat=self.remat, sample_mask=mask, reduce=self.mesh.all_reduce_grad,
+                channels_last=self.channels_last,
             )
             sse, count, per_sample = _squared_error_and_count(pred, targets, mask)
             loss, denom = _global_mse(self.mesh, sse, count, per_sample)
@@ -282,14 +289,15 @@ class DPTrainStep(TrainStep):
 
 
 def make_dp_train_step(unet_cfg: UNetConfig, optimizer: Adam, mesh, *, compute_dtype=torch.float32,
-                       masked: bool = False, remat: bool = False) -> DPTrainStep:
+                       masked: bool = False, remat: bool = False, channels_last: bool = False) -> DPTrainStep:
     """step(state, local images, local targets[, local valid_mask]) ->
     (new state, global loss) on each rank of mesh (``DPTrainStep``)."""
-    return DPTrainStep(unet_cfg, optimizer, mesh, compute_dtype=compute_dtype, masked=masked, remat=remat)
+    return DPTrainStep(unet_cfg, optimizer, mesh, compute_dtype=compute_dtype, masked=masked, remat=remat,
+                       channels_last=channels_last)
 
 
 def make_eval_step(unet_cfg: UNetConfig, *, use_ema: bool = True, compute_dtype=torch.float32,
-                   masked: bool = False):
+                   masked: bool = False, channels_last: bool = False):
     """eval(state, images, targets[, valid_mask]) -> loss under the EMA
     shadow by default (the reference validates and tests under
     ema.average_parameters(), train_unet.py:389,428); a non-finite loss
@@ -299,7 +307,8 @@ def make_eval_step(unet_cfg: UNetConfig, *, use_ema: bool = True, compute_dtype=
     @torch.no_grad()
     def step(state: TrainState, images, targets, valid_mask=None) -> torch.Tensor:
         params = state.ema.shadow if use_ema else state.params
-        pred, _ = unet_apply(unet_cfg, params, state.batch_stats, images, compute_dtype=compute_dtype)
+        pred, _ = unet_apply(unet_cfg, params, state.batch_stats, images, compute_dtype=compute_dtype,
+                             channels_last=channels_last)
         loss = mse_loss(pred, targets, valid_mask if masked else None)
         return torch.where(torch.isfinite(loss), loss, torch.zeros_like(loss))
 
@@ -307,7 +316,7 @@ def make_eval_step(unet_cfg: UNetConfig, *, use_ema: bool = True, compute_dtype=
 
 
 def make_dp_eval_step(unet_cfg: UNetConfig, mesh, *, use_ema: bool = True, compute_dtype=torch.float32,
-                      masked: bool = False):
+                      masked: bool = False, channels_last: bool = False):
     """``make_eval_step`` over the ranks of mesh: each rank evaluates its
     rows and every rank returns the global masked loss (0 when it is not
     finite)."""
@@ -315,7 +324,8 @@ def make_dp_eval_step(unet_cfg: UNetConfig, mesh, *, use_ema: bool = True, compu
     @torch.no_grad()
     def step(state: TrainState, images, targets, valid_mask=None) -> torch.Tensor:
         params = state.ema.shadow if use_ema else state.params
-        pred, _ = unet_apply(unet_cfg, params, state.batch_stats, images, compute_dtype=compute_dtype)
+        pred, _ = unet_apply(unet_cfg, params, state.batch_stats, images, compute_dtype=compute_dtype,
+                             channels_last=channels_last)
         loss, _ = _global_mse(mesh, *_squared_error_and_count(pred, targets, valid_mask if masked else None))
         return torch.where(torch.isfinite(loss), loss, torch.zeros_like(loss))
 

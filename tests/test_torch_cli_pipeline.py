@@ -6,6 +6,7 @@ the JAX package holds its two renderers to (RMSE < 0.005 mm, fewer than
 1e-4 of the pixels off by more than 1e-4 mm)."""
 
 import os
+import re
 import shutil
 
 import numpy as np
@@ -14,9 +15,8 @@ import pytest
 from gelslim_depth_tpu.cli import main as jax_cli
 from gelslim_depth_tpu.data.pt_io import load_pt as jax_load_pt
 from gelslim_depth_tpu_torch.cli import main as cli
-from gelslim_depth_tpu_torch.cli.train_cmd import UNPORTED_FLAGS
 from gelslim_depth_tpu_torch.data.pt_io import save_pt
-from gelslim_depth_tpu_torch.data.synthetic import make_synthetic_object
+from gelslim_depth_tpu_torch.data.synthetic import make_synthetic_object, write_synthetic_dataset_tree
 from gelslim_depth_tpu_torch.meshgen import fixtures, save_stl_binary
 from tests.torch_port_helpers import torch_threads
 
@@ -110,11 +110,20 @@ def test_full_pipeline_vs_jax_cli(tmp_path, monkeypatch):
     assert (tmp_path / "pt_images" / "plateA.png").exists()
 
 
-@pytest.mark.parametrize("flag", sorted(UNPORTED_FLAGS))
-def test_train_refuses_unported_flags(flag, tmp_path, capsys):
-    value = {"coordinator_address": ["localhost:1234"], "num_processes": ["2"], "process_id": ["0"]}
-    argv = ["train", "w", "cpu", "--data_path", str(tmp_path), f"--{flag}", *value.get(flag, [])]
-    assert cli(argv) == 2
-    err = capsys.readouterr().err
-    assert f"--{flag}" in err and "not ported" in err
-    assert not os.listdir(tmp_path)  # refused before anything ran
+def test_train_channels_last(tmp_path, monkeypatch):
+    """train --channels_last bakes every split NHWC and trains NHWC: rc 0,
+    and the same epoch losses as the NCHW run (the jax package's NHWC bar,
+    tests/test_trainer.py:324-329)."""
+    write_synthetic_dataset_tree(str(tmp_path / "data"), n_per_object=4, image_size=(32, 43), seed=3)
+    monkeypatch.chdir(tmp_path)
+    losses = {}
+    for flag in ([], ["--channels_last"]):
+        out = tmp_path / f"out{len(flag)}"
+        assert cli(["train", "nhwc", "cpu", "--data_path", str(tmp_path / "data"), "--output_dir", str(out),
+                    "--use_difference_image", "--dims", "8", "16", "--batch_size", "4", "--max_epochs", "2",
+                    *flag]) == 0
+        lines = (out / "loss_values" / "nhwc.txt").read_text().splitlines()
+        losses[bool(flag)] = [[float(v) for v in re.findall(r"loss: ([0-9.]+)", ln)] for ln in lines
+                              if ln.startswith("Train loss")]
+    assert len(losses[True]) == 2
+    np.testing.assert_allclose(losses[True], losses[False], rtol=1e-5, atol=1e-7)

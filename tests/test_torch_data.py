@@ -138,11 +138,12 @@ def test_depth_images_alias_and_stats_hook():
 
 
 def test_bake_refuses_what_is_not_ported():
+    """NHWC and the 'bilinear' and 'nearest' bakes are ported
+    (tests/test_torch_nhwc.py, tests/test_torch_resize.py); a resize kernel
+    of jax.image.resize beyond those is not."""
     objs = _objects(9, 1)
-    with pytest.raises(NotImplementedError):
-        bake_dataset(preloaded=objs, device="cpu", channels_last=True)
-    with pytest.raises(NotImplementedError):
-        bake_dataset(preloaded=objs, device="cpu", interp_method="bilinear")
+    with pytest.raises(ValueError, match="interp_method"):
+        bake_dataset(preloaded=objs, device="cpu", interp_method="lanczos3")
 
 
 def test_batch_iterator_matches_jax():

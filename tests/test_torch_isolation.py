@@ -116,6 +116,17 @@ def test_port_runs_with_jax_blocked(tmp_path):
         assert parallel.gather_rows(mesh, out).shape == (2, 2, 16, 22)
         render = parallel.make_dp_renderer(mesh, spec=plane_spec("+y+z"), image_size=(16, 22), mm_per_pixel=1.0)
         assert render(pts, np.zeros((2, 3), np.float32), np.full(2, 12.0, np.float32)).shape == (2, 2, 16, 22)
+        # height-sharded serving on the one rank, a jax.image.resize method, an NHWC step
+        sp = parallel.make_spatial_predictor(cfg, cfg.unet_config(), mesh, (16, 22))
+        band, base_band = parallel.shard_height(mesh, sp.plan, frames, frames[0])
+        got = parallel.gather_height(mesh, sp(state.params, state.batch_stats, band, base_band))
+        assert got.shape == (2, 2, 16, 22) and torch.isfinite(got).all() and sp.halo.exchanges == 6
+        from gelslim_depth_tpu_torch import ops
+        assert ops.resize(torch.rand(1, 3, 16, 22), (8, 11), "bilinear").shape == (1, 3, 8, 11)
+        from gelslim_depth_tpu_torch.train import make_train_step
+        step = make_train_step(cfg.unet_config(), opt, channels_last=True)
+        state, loss = step(state, x.permute(0, 2, 3, 1), torch.zeros(2, 8, 11, 1))
+        assert torch.isfinite(loss)
         torch.distributed.destroy_process_group()
         import runpy
         sys.argv = ["gelslim_depth_tpu_torch", "--help"]

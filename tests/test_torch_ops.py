@@ -71,9 +71,11 @@ def test_area_resize_contracts_at_highest_precision(monkeypatch, user_precision)
 
 
 def test_resize_only_area_is_ported(rng):
+    """'area', 'bilinear' and 'nearest' are ported (tests/test_torch_resize.py);
+    the other jax.image.resize kernels the JAX package passes through are not."""
     x = torch.zeros((1, 1, 4, 4))
-    for method in ("bilinear", "nearest"):
-        with pytest.raises(NotImplementedError):
+    for method in ("bicubic", "lanczos3"):
+        with pytest.raises(ValueError, match="interp_method"):
             tops.resize(x, (2, 2), method)
 
 

@@ -14,7 +14,9 @@ and writes what it computed to workdir/<job>_<rank>.npz. The jobs:
 - serving: DP fused float32 serving (shared base, per-frame base, rows
   that do not divide), DP int8 serving, the DP renderer;
 - trainer: the DP Trainer, replicated and sharded, on the uneven 9/5/9/7
-  objects of tests/multihost_worker.py, rebuilt with the port's own code.
+  objects of tests/multihost_worker.py, rebuilt with the port's own code;
+- spatial: height-sharded float32 and int8 serving of one dual frame
+  (make_spatial_predictor[_int8]) on each of SPATIAL_CASES, gathered.
 
 The worker imports nothing of JAX.
 """
@@ -47,6 +49,11 @@ TRAIN_CFG = dict(
 )
 BAKE = dict(use_difference_image=True, image_normalization_method="0_255_to_0_1", norm_scale=0.9)
 MAX_EPOCHS = 2
+# the spatial job: tests/test_inference.py's small_config shapes, plus one
+# whose level 1 has an odd 21 rows and one whose frame-to-net height ratio
+# (84 -> 40) is not an integer; name -> (frame = output size, net size)
+SPATIAL_DIMS = (8, 16, 32)
+SPATIAL_CASES = {"small": ((80, 107), (40, 53)), "odd": ((84, 107), (42, 53)), "ratio": ((84, 107), (40, 53))}
 
 
 # ----------------------------------------------------------------------------
@@ -93,6 +100,23 @@ def render_inputs():
     poses = rng.uniform(-0.002, 0.002, (6, 3)).astype(np.float32)
     widths = rng.uniform(10, 14, (6,)).astype(np.float32)
     return pc, poses, widths
+
+
+def spatial_config(net_hw):
+    return dict(CNN_dimensions=SPATIAL_DIMS, input_tactile_image_size=net_hw, image_normalization_method="0_255_to_0_1",
+                depth_normalization_method="min_max_to_0_-1", depth_normalization_parameters=(-1.9180814027786255, 0.0),
+                norm_scale=0.9, use_difference_image=True)
+
+
+def spatial_inputs(frame_hw):
+    """Weights, one dual frame, its base, and 4 calibration frames."""
+    from tests.torch_fixture import make_state_dict
+
+    rng = np.random.RandomState(77)
+    sd = make_state_dict(rng, SPATIAL_DIMS)
+    frames = rng.uniform(0, 255, (1, 6, *frame_hw)).astype(np.float32)
+    base = rng.uniform(0, 255, (6, *frame_hw)).astype(np.float32)
+    return sd, frames, base, rng.uniform(0, 255, (4, 6, *frame_hw)).astype(np.float32)
 
 
 def make_all_objects():
@@ -246,7 +270,31 @@ def job_trainer(mesh, workdir):
     return out
 
 
-JOBS = {"steps": job_steps, "serving": job_serving, "trainer": job_trainer}
+def job_spatial(mesh, workdir):
+    import torch
+
+    from gelslim_depth_tpu_torch import GelslimConfig, Predictor
+    from gelslim_depth_tpu_torch.models.unet import split_state_dict
+    from gelslim_depth_tpu_torch.parallel import (
+        gather_height, make_spatial_predictor, make_spatial_predictor_int8, replicate, shard_height,
+    )
+
+    out = {}
+    for name, (frame_hw, net_hw) in SPATIAL_CASES.items():
+        cfg = GelslimConfig(**spatial_config(net_hw))
+        sd, frames, base, calib = spatial_inputs(frame_hw)
+        params, stats = replicate(mesh, split_state_dict(sd))
+        sp = make_spatial_predictor(cfg, cfg.unet_config(), mesh, frame_hw)
+        band, base_band = shard_height(mesh, sp.plan, frames, base)
+        out[f"{name}|float"] = gather_height(mesh, sp(params, stats, band, base_band))
+        q = replicate(mesh, Predictor(cfg, sd, device="cpu").quantize(calib, base).q)
+        sq = make_spatial_predictor_int8(cfg, mesh, frame_hw, compute_dtype=torch.float32)
+        out[f"{name}|int8"] = gather_height(mesh, sq(q, band, base_band))
+        out[f"{name}|exchanges"] = torch.tensor([sp.halo.exchanges, sq.halo.exchanges])
+    return {k: v.numpy() for k, v in out.items()}
+
+
+JOBS = {"steps": job_steps, "serving": job_serving, "trainer": job_trainer, "spatial": job_spatial}
 
 
 def main():
