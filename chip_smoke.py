@@ -31,14 +31,20 @@ runs on one flagship dual frame in both parallel groups: NCCL world 1 (one
 band) and the two gloo ranks (a band each), every rank's band held against
 the kernels' plain versions. NHWC (``channels_last``) training is held
 against NCHW and timed, and a bilinear serving call launches no kernel.
-Last, the data-prep and training commands on the card:
+Then the data-prep and training commands on the card:
 ``generate-depth``, ``train`` (1 epoch, flagship dims, bf16) and ``test``.
-Prints the card, a ``{"kernels": [...]}`` line (launches counted in the
-ranks too), an end-to-end line, an engine and export line, a training line,
-a meshgen and CLI line, a parallel line and, last, ``{"ok": true,
-"device": {...}}``. Any failed check, and a rank that fails or hangs past
-its deadline, exits non-zero; with no CUDA device it exits non-zero before
-any result. Imports nothing of JAX or of the JAX package.
+Last, the convergence recipe of ``scripts/train_convergence_torch.py`` cut
+to 1,000 train dual frames and 3 bf16 epochs at the flagship dims: its best
+val loss must fall 20-fold from the initial weights', and its best-val
+checkpoint is served in bf16 and int8 on the held-out dual frames, the bf16
+depth closer to the ground truth than the best constant map.
+Prints the card, an end-to-end line, an engine and export line, a training
+line, a meshgen and CLI line, a parallel line, a convergence line, a
+``{"kernels": [...]}`` line (every path's launches, the ranks' too), the
+card again and, last, ``{"ok": true, "device": {...}}``. Any failed check,
+and a rank that fails or hangs past its deadline, exits non-zero; with no
+CUDA device it exits non-zero before any result. Imports nothing of JAX or
+of the JAX package.
 """
 
 import importlib.util
@@ -1121,9 +1127,10 @@ def drive_training(cfg, train, val, test, base):
     """Trainer.fit for 2 epochs on the synthetic set, float32; then the
     best-val checkpoint served on the card through fused_preprocess_dual,
     and a save_resume_state -> load_resume_state round trip held bit for
-    bit to the live state. Returns the record and the kernel launches of
-    the path."""
-    fused_preprocess_dual.launches = 0
+    bit to the live state; then the CLI's export --check of that
+    checkpoint. Returns the record and the kernel launches of the two
+    paths."""
+    reset_launches()
     with tempfile.TemporaryDirectory() as out:
         t0 = time.perf_counter()
         tr = Trainer(cfg, train, val, test, output_dir=out, seed=0, log_fn=lambda m: None, enable_plots=False)
@@ -1148,9 +1155,10 @@ def drive_training(cfg, train, val, test, base):
         same = set(loaded) == set(live) and all(
             torch.equal(loaded[k], v) and loaded[k].device == v.device for k, v in live.items())
         check(same and tr.epoch == 2, "resume round trip differs from the live state")
-        launches = {"fused_preprocess_dual": fused_preprocess_dual.launches}
-        print(f"training path launches: {launches}; resume round trip bit for bit", flush=True)
-        check(launches["fused_preprocess_dual"] == 1, f"serving the trained checkpoint launched {launches}")
+        launches = {"training_serve": read_launches()}
+        print(f"training path launches: {launches['training_serve']}; resume round trip bit for bit", flush=True)
+        check(launches["training_serve"]["fused_preprocess_dual"] == 1,
+              f"serving the trained checkpoint launched {launches['training_serve']}")
 
         # the export command on the fit checkpoint, in-process, on the card
         reset_launches()
@@ -1496,6 +1504,98 @@ def drive_cli_data_prep(workdir):
     print(f"cli on the card: generate-depth (3 splits) {rec['generate_depth_s']:.1f} s, train 1 epoch "
           f"{rec['train_s']:.1f} s, test {rec['test_s']:.1f} s; each rc 0", flush=True)
     return rec
+
+
+CONVERGENCE_DUALS = (1000, 100, 100)  # train, val, test dual frames: 2,000 / 200 / 200 finger samples
+CONVERGENCE_EPOCHS = 3  # 375 steps at batch 16
+CONVERGENCE_FALL = 20  # val_loss_init over the best val loss, at least
+INT8_GATE_MM = 0.05  # delta_mm and int8 vs bf16 RMSE (tests/test_quantize.py:113)
+
+
+def load_convergence_script():
+    """scripts/train_convergence_torch.py, by path."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "train_convergence_torch.py")
+    spec = importlib.util.spec_from_file_location("train_convergence_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def drive_convergence(workdir):
+    """The convergence recipe cut down (scripts/train_convergence_torch.py):
+    its corpus (seeds 100, 200, 300) at 160x213, its config (flagship dims,
+    batch 16, Adam 1e-3 wd 1e-6, EMA 0.995), bf16, 3 epochs. The best val
+    loss must fall CONVERGENCE_FALL-fold from val_loss_init. Then the trained
+    model is served: the best-val checkpoint through Predictor.from_checkpoint
+    (bf16) on every held-out test dual frame, each object's frames with its
+    own base frame, one fused_preprocess_dual launch a call; its depth RMSE
+    against the ground truth must beat the best constant map's (the ground
+    truth's mean). Its QuantizedPredictor, calibrated on 4 train dual frames,
+    serves the same frames with 17 conv2d_int8 launches a call, within the
+    int8 gate of the bf16 output. Returns the record and the launches."""
+    conv = load_convergence_script()
+    t0 = phase_t0 = time.perf_counter()
+    train_objs, val_objs, test_objs = (conv.make_corpus(n, seed)
+                                       for n, seed in zip(CONVERGENCE_DUALS, conv.SPLIT_SEEDS))
+    train, val, test = conv.bake_splits(train_objs, val_objs, test_objs)
+    rec = {"corpus_bake_s": time.perf_counter() - t0, "finger_samples": [len(train), len(val), len(test)]}
+    cfg = conv.make_config("convergence")
+    tr = Trainer(cfg, train, val, test, output_dir=workdir, compute_dtype=torch.bfloat16, seed=0,
+                 log_fn=lambda m: None, enable_plots=False)
+    rec["val_loss_init"] = tr._eval_epoch(val, seed=1)
+    t0 = time.perf_counter()
+    hist = tr.fit(max_epochs=CONVERGENCE_EPOCHS)
+    rec["fit_s"], rec["history"] = time.perf_counter() - t0, hist
+    rec["val_fall"] = rec["val_loss_init"] / min(hist["validation_loss"])
+    print(f"convergence: corpus and bake {rec['corpus_bake_s']:.1f} s ({rec['finger_samples']} finger samples at "
+          f"{conv.IMAGE_SIZE}); val_loss_init {rec['val_loss_init']:.6f}; fit {CONVERGENCE_EPOCHS} epochs bf16 "
+          f"{rec['fit_s']:.1f} s, history {hist}; best val loss fell {rec['val_fall']:.1f}x "
+          f"(at least {CONVERGENCE_FALL}x)", flush=True)
+    check(all(np.isfinite(v) for vs in hist.values() for v in vs), f"convergence history {hist}")
+    check(rec["val_fall"] >= CONVERGENCE_FALL, f"convergence: val loss fell {rec['val_fall']:.2f}x")
+
+    reset_launches()
+    pred = Predictor.from_checkpoint(tr.weights_dir, compute_dtype=torch.bfloat16)
+    size = conv.IMAGE_SIZE
+    frames = [torch.from_numpy(o["tactile_image"]).cuda() for o in test_objs]
+    bases = [torch.from_numpy(o["base_tactile_image"][0]).cuda() for o in test_objs]
+    truth = torch.cat([torch.from_numpy(o["depth_image"]) for o in test_objs]).cuda()
+    served = []
+    for f, b in zip(frames, bases):
+        before = fused_preprocess_dual.launches
+        served.append(pred.predict_dual_frames(f, b, size))
+        check(fused_preprocess_dual.launches == before + 1, "convergence: a bf16 serving call's launches")
+    served = torch.cat(served).float()
+    check(served.shape == truth.shape and bool(torch.isfinite(served).all()),
+          f"convergence: served {tuple(served.shape)} against truth {tuple(truth.shape)}")
+    rec["served_rmse_mm"] = (served - truth).pow(2).mean().sqrt().item()
+    rec["constant_rmse_mm"] = (truth - truth.mean()).pow(2).mean().sqrt().item()
+    rec["served_over_constant"] = rec["served_rmse_mm"] / rec["constant_rmse_mm"]
+    print(f"convergence: best-val checkpoint served bf16 on {truth.shape[0]} test dual frames: depth RMSE "
+          f"{rec['served_rmse_mm']:.4f} mm against the best constant map's {rec['constant_rmse_mm']:.4f} mm "
+          f"(ratio {rec['served_over_constant']:.3f})", flush=True)
+    check(rec["served_over_constant"] < 1, "convergence: the trained model serves no better than a constant map")
+
+    calib = train_objs[0]
+    qpred = pred.quantize(calib["tactile_image"][:4], calib["base_tactile_image"][0])
+    rec["int8_delta_mm"] = qpred.delta_mm
+    q_out = []
+    for f, b in zip(frames, bases):
+        before = fused_preprocess_dual.launches, conv2d_int8.launches
+        q_out.append(qpred.predict_dual_frames(f, b, size))
+        rose = fused_preprocess_dual.launches - before[0], conv2d_int8.launches - before[1]
+        check(rose == (1, 17), f"convergence: an int8 serving call's launches rose by {rose}")
+    q_out = torch.cat(q_out).float()
+    rec["int8_vs_bf16_rmse_mm"] = (q_out - served).pow(2).mean().sqrt().item()
+    rec["int8_rmse_mm"] = (q_out - truth).pow(2).mean().sqrt().item()
+    launches = read_launches()
+    rec["phase_s"] = time.perf_counter() - phase_t0
+    print(f"convergence: int8 of the checkpoint (4 calibration dual frames): delta_mm {rec['int8_delta_mm']:.4e}, "
+          f"vs bf16 RMSE {rec['int8_vs_bf16_rmse_mm']:.4e} mm, vs truth {rec['int8_rmse_mm']:.4f} mm; "
+          f"launches {launches}; the phase {rec['phase_s']:.1f} s", flush=True)
+    check(rec["int8_delta_mm"] < INT8_GATE_MM and rec["int8_vs_bf16_rmse_mm"] < INT8_GATE_MM,
+          f"convergence int8: delta_mm {rec['int8_delta_mm']}, vs bf16 RMSE {rec['int8_vs_bf16_rmse_mm']} mm")
+    return rec, {"convergence": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1930,9 +2030,22 @@ def main() -> None:
         timing = measure_training(ucfg, train, peaks)
         nhwc = check_nhwc(ucfg, train)
         parallel_run, parallel_launches = drive_parallel(cfg, sd, qpred, train, workdir)
+
+    training = {"parity": check_train_step_parity(ucfg, train), "bf16_losses": check_bf16_learning(ucfg, train)}
+    training["fit"], train_launches = drive_training(train_cfg, train, val, test, base)
+    training["timing"] = timing
+    training["nhwc"] = nhwc
+    with tempfile.TemporaryDirectory() as workdir:
+        reset_launches()
+        cli_run = drive_cli_data_prep(workdir)
+        cli_launches = read_launches()
+    with tempfile.TemporaryDirectory() as workdir:
+        convergence, convergence_launches = drive_convergence(workdir)
+    # every path's launches, each counted from 0 just before the path ran
     path_launches = {"main": {"fused_preprocess_dual": launches}, "int8": int8_launches, "entry": entry_launches,
                      "engine": engine_launches, "export": export_launches, "meshgen": meshgen_launches,
-                     "bilinear": bilinear_launches, **parallel_launches}
+                     "bilinear": bilinear_launches, **parallel_launches, **train_launches,
+                     "cli_data_prep": cli_launches, **convergence_launches}
     t = timings[64]
     sums = {k: sum(v[k] for v in sites.values()) for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bytes_ms", "ops_ms")}
     kernels = [{
@@ -1962,22 +2075,14 @@ def main() -> None:
         "library_ms": sums["library_ms"],
         "sites": list(sites),
     }]
-    print(json.dumps({"kernels": kernels}))
-
-    training = {"parity": check_train_step_parity(ucfg, train), "bf16_losses": check_bf16_learning(ucfg, train)}
-    training["fit"], train_launches = drive_training(train_cfg, train, val, test, base)
-    training["timing"] = timing
-    training["nhwc"] = nhwc
-    with tempfile.TemporaryDirectory() as workdir:
-        reset_launches()
-        cli_run = drive_cli_data_prep(workdir)
-        cli_launches = read_launches()
     print(json.dumps({"end_to_end": e2e, "kernel_N1": timings[1], "conv2d_int8_sites_N64": sites,
                       "launches_by_path": path_launches}))
     print(json.dumps({"engine": engine, "export": exported, "bilinear": bilinear}))
-    print(json.dumps({"training": training, "training_path_launches": train_launches}))
-    print(json.dumps({"meshgen": meshgen, "cli_data_prep": cli_run, "cli_data_prep_launches": cli_launches}))
+    print(json.dumps({"training": training}))
+    print(json.dumps({"meshgen": meshgen, "cli_data_prep": cli_run}))
     print(json.dumps({"parallel": parallel_run}))
+    print(json.dumps({"convergence": convergence}))
+    print(json.dumps({"kernels": kernels}))
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

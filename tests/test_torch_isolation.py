@@ -153,6 +153,8 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    scripts = os.path.join(REPO, "scripts")
+    yield from (os.path.join(scripts, f) for f in sorted(os.listdir(scripts)) if f.endswith("_torch.py"))
 
 
 def test_no_jax_import_in_port_sources():
