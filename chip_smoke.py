@@ -82,7 +82,7 @@ from gelslim_depth_tpu_torch.meshgen import (
     sample_surface_points,
     save_stl_binary,
 )
-from gelslim_depth_tpu_torch.meshgen.native_render import render_depth_batch_native
+from gelslim_depth_tpu_torch.meshgen.native_render import native_renderer_available, render_depth_batch_native
 from gelslim_depth_tpu_torch.models.unet import unet_state_shapes
 from gelslim_depth_tpu_torch.models import quantize as quantize_module
 from gelslim_depth_tpu_torch.models import unet as unet_module
@@ -1038,7 +1038,7 @@ def check_train_step_parity(ucfg, train):
     otherwise: a float32 step turns cuDNN TF32 off itself, across the
     forward and the backward."""
     opt = make_optimizer()
-    state = create_train_state(ucfg, opt, generator=torch.Generator().manual_seed(0))
+    state = create_train_state(ucfg, opt, generator=torch.Generator().manual_seed(0), device="cpu")
     x, y = train.tactile_image[:2], train.depth_image[:2]
     mask = torch.ones(2, dtype=torch.bool)
     tanh = dataclasses.replace(ucfg, activation="tanh")
@@ -1367,6 +1367,9 @@ def drive_meshgen(workdir):
     trace, and of the hole fill alone on the 256 poses' grids; the host
     time of the copy back alone; the pose chunk and peak memory. Returns
     the record."""
+    available = native_renderer_available()
+    print(f"meshgen: native_renderer_available() = {available}", flush=True)
+    check(available, "meshgen: the host C++ renderer does not build")
     spec = plane_spec("+y+z")
     kw = dict(spec=spec, image_size=FRAME, mm_per_pixel=12.0 / FRAME[0], fill_iters=6)
     meshes = {"ridged plate": fixtures.heightfield_plate_triangles(fixtures.ridged_height_fn()),

@@ -36,6 +36,16 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def native_renderer_available() -> bool:
+    """True when the host renderer builds and loads; ``_lib()`` itself still
+    raises for its callers."""
+    try:
+        _lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def render_depth_batch_native(
     pc: np.ndarray,        # (P, 3) mm
     poses: np.ndarray,     # (B, 3) rows (t1, t2, angle); t1/t2 in METERS

@@ -149,6 +149,13 @@ def resize(x: torch.Tensor, size: Tuple[int, int], interp_method: str = "area") 
                      _weight_tensor(w_in, w_out, interp_method, x.device))
 
 
+def sample_multi_channel_image_to_desired_size(mc_image: torch.Tensor, desired_size: Tuple[int, int],
+                                               interp_method: str = "area") -> torch.Tensor:
+    """The reference API's name for ``resize`` (ref:
+    processing_utils/image_utils.py:12)."""
+    return resize(mc_image, desired_size, interp_method)
+
+
 def resize_rows(x: torch.Tensor, h_in: int, size: Tuple[int, int], out_rows: Tuple[int, int], in_start: int,
                 interp_method: str = "area") -> torch.Tensor:
     """Output rows [out_rows[0], out_rows[1]) of ``resize(full, size)``,

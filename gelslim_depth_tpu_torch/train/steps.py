@@ -43,6 +43,7 @@ from gelslim_depth_tpu_torch.models.unet import (
     unet_apply,
 )
 from gelslim_depth_tpu_torch.train.ema import EmaState, ema_init, ema_update
+from gelslim_depth_tpu_torch.utils.device import resolve_device
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -146,15 +147,20 @@ def create_train_state(
     reinit_std: Optional[float] = 0.01,
     params: Optional[Tensors] = None,
     batch_stats: Optional[Tensors] = None,
-    device="cpu",
+    device=None,
 ) -> TrainState:
     """Fresh state with the reference's N(0, 0.01) weight re-init
-    (train_unet.py:246-250), drawn on the CPU from generator, or wrap given
-    (fine-tune) weights; then on device."""
+    (train_unet.py:246-250), drawn on the CPU from generator and then put on
+    ``resolve_device(device)``: the card unless device says otherwise. Or
+    wrap given (fine-tune) weights, which stay on their own device unless
+    device is given."""
     if params is None:
         params, batch_stats = init_unet(unet_cfg, generator)
         if reinit_std is not None:
             params = reinit_weights_normal(params, generator, std=reinit_std)
+        device = resolve_device(device)
+    elif device is not None:
+        device = resolve_device(device)
     params = {k: v.to(device=device, dtype=torch.float32).clone() for k, v in params.items()}
     batch_stats = {k: v.to(device=device, dtype=torch.float32).clone() for k, v in batch_stats.items()}
     return TrainState(

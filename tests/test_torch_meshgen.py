@@ -242,6 +242,32 @@ def test_native_vs_jax():
         assert_depth_bar(got, want)
 
 
+def test_native_renderer_available_matches_jax():
+    from gelslim_depth_tpu.meshgen.native_render import native_renderer_available as jax_available
+    from gelslim_depth_tpu_torch.meshgen.native_render import native_renderer_available
+
+    got = native_renderer_available()
+    assert isinstance(got, bool) and got == jax_available()
+
+
+def test_native_renderer_available_is_false_when_the_build_fails(monkeypatch):
+    """The probe says False; _lib() still raises for its callers."""
+    from gelslim_depth_tpu_torch.meshgen import native_render
+    from gelslim_depth_tpu_torch.ops.kernels import build
+
+    def no_compiler(name):
+        raise RuntimeError(f"failed to build {name}")
+
+    monkeypatch.setattr(build, "load_library", no_compiler)
+    native_render._lib.cache_clear()
+    try:
+        assert native_render.native_renderer_available() is False
+        with pytest.raises(RuntimeError, match="failed to build"):
+            native_render._lib()
+    finally:
+        native_render._lib.cache_clear()
+
+
 def test_native_backend_raises_without_its_library(tmp_path, monkeypatch):
     """A native renderer that cannot be built raises; nothing falls back."""
     from gelslim_depth_tpu_torch.meshgen import native_render

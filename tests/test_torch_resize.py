@@ -21,6 +21,7 @@ from gelslim_depth_tpu.config import GelslimConfig as JaxConfig
 from gelslim_depth_tpu.data.dataset import bake_dataset as jax_bake
 from gelslim_depth_tpu.inference import fused_predict_dual as jax_fused_predict_dual
 from gelslim_depth_tpu.models.torch_import import import_torch_state_dict
+from gelslim_depth_tpu.ops import sample_multi_channel_image_to_desired_size as jax_sample_to_size
 from gelslim_depth_tpu.ops.resize import resize as jax_resize
 from gelslim_depth_tpu_torch import GelslimConfig, Predictor, bake_dataset, inference, ops
 from gelslim_depth_tpu_torch.data.synthetic import make_synthetic_object
@@ -48,6 +49,18 @@ def test_resize_matches_jax_image_resize(method, shape, size):
     assert got.shape == shape[:2] + size and got.dtype == np.float32
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
     np.testing.assert_allclose(got, np.asarray(jax_resize(jnp.asarray(x), size, method)), **TOL)
+
+
+@pytest.mark.parametrize("method", ("area",) + METHODS)
+def test_sample_multi_channel_image_to_desired_size_matches_jax(method):
+    """The reference API's name for resize, in the port's ops and its __all__."""
+    assert "sample_multi_channel_image_to_desired_size" in ops.__all__
+    x = np.random.RandomState(3).uniform(0, 255, (2, 6, 64, 85)).astype(np.float32)
+    got = ops.sample_multi_channel_image_to_desired_size(torch.from_numpy(x), (32, 43), method).numpy()
+    want = np.asarray(jax_sample_to_size(jnp.asarray(x), (32, 43), method))
+    assert got.shape == want.shape == (2, 6, 32, 43)
+    np.testing.assert_allclose(got / 255.0, want / 255.0, **TOL)
+    np.testing.assert_array_equal(got, ops.resize(torch.from_numpy(x), (32, 43), method).numpy())
 
 
 @pytest.mark.parametrize("method", METHODS)

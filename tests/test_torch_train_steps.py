@@ -240,11 +240,29 @@ def test_init_and_reinit_statistics():
         if not k.endswith(".weight"):
             assert torch.equal(v, p0[k]), k
     # the same generator seed gives the same state
-    a = create_train_state(CFG, make_optimizer(), generator=torch.Generator().manual_seed(3))
-    b = create_train_state(CFG, make_optimizer(), generator=torch.Generator().manual_seed(3))
+    a = create_train_state(CFG, make_optimizer(), generator=torch.Generator().manual_seed(3), device="cpu")
+    b = create_train_state(CFG, make_optimizer(), generator=torch.Generator().manual_seed(3), device="cpu")
     assert all(torch.equal(v, b.tensors()[k]) for k, v in a.tensors().items())
     for k, v in a.ema.shadow.items():
         assert torch.equal(v, a.params[k]) and v.data_ptr() != a.params[k].data_ptr()
+
+
+def test_create_train_state_device_rule(monkeypatch):
+    """A fresh draw goes to the card unless the CPU is asked for, and raises
+    without one; given weights keep their own device, or go where asked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_train_state(CFG, make_optimizer(), generator=torch.Generator().manual_seed(3))
+    fresh = create_train_state(CFG, make_optimizer(), generator=torch.Generator().manual_seed(3), device="cpu")
+    assert all(v.device.type == "cpu" for v in fresh.tensors().values())
+    p, s = init_unet(CFG, torch.Generator().manual_seed(4))
+    meta = create_train_state(CFG, make_optimizer(), params={k: v.to("meta") for k, v in p.items()},
+                              batch_stats={k: v.to("meta") for k, v in s.items()})
+    assert all(v.device.type == "meta" for v in meta.tensors().values())
+    moved = create_train_state(CFG, make_optimizer(), params=p, batch_stats=s, device="meta")
+    assert all(v.device.type == "meta" for v in moved.tensors().values())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_train_state(CFG, make_optimizer(), params=p, batch_stats=s, device="cuda")
 
 
 def test_train_state_crosses_packages(tmp_path):
@@ -284,7 +302,7 @@ def test_bf16_steps_learn_on_float32_masters():
     """bfloat16 compute keeps float32 parameters and moments, and the loss
     on one batch falls."""
     opt = make_optimizer(3e-3)
-    state = create_train_state(CFG, opt, generator=torch.Generator().manual_seed(1))
+    state = create_train_state(CFG, opt, generator=torch.Generator().manual_seed(1), device="cpu")
     step = make_train_step(CFG, opt, compute_dtype=torch.bfloat16, masked=True)
     x, y, m = (torch.from_numpy(a) for a in _batches(np.random.RandomState(12), 1)[0])
     losses = []
