@@ -12,6 +12,11 @@ resize-back as plain tensor ops. ``StreamingEngine`` feeds a predictor a
 live stream of single frames, coalescing those that arrive while the
 device is busy into micro-batches.
 
+A serving call is a ``utils.profiling.span`` (``serve.call``) holding the
+front end's, the U-Net's and the post's (``serve.front_end``,
+``serve.unet``, ``serve.post``); ``utils.profiling.recording()`` keeps
+them, with the U-Net's block and conv spans inside.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no CUDA device they raise rather than run on the CPU.
 """
@@ -30,6 +35,7 @@ from gelslim_depth_tpu_torch import ops
 from gelslim_depth_tpu_torch.config import GelslimConfig
 from gelslim_depth_tpu_torch.models.unet import UNet
 from gelslim_depth_tpu_torch.utils.device import resolve_device
+from gelslim_depth_tpu_torch.utils.profiling import CALL, span
 
 
 def _preprocess(config: GelslimConfig, images: torch.Tensor) -> torch.Tensor:
@@ -48,7 +54,12 @@ def fused_predict(
     net maps the NCHW network input to NCHW float32 logits: a ``UNet``, or
     a quantized one's forward. Returns (N, 1, *output_size) depth in mm (<= 0).
     """
-    return _postprocess(config, net(_preprocess(config, images)), output_size)
+    with span("serve.front_end"):
+        x = _preprocess(config, images)
+    with span("serve.unet"):
+        y = net(x)
+    with span("serve.post"):
+        return _postprocess(config, y, output_size)
 
 
 def _denormalize(config: GelslimConfig, y: torch.Tensor) -> torch.Tensor:
@@ -119,14 +130,20 @@ def fused_predict_dual(
     if use_kernel is None:
         use_kernel = frames.is_cuda
     use_kernel = use_kernel and config.interp_method == "area"
-    if use_kernel and (base_frame is None or base_frame.ndim == 3):
-        x = kernel_front_end(config, frames, base_frame, config.input_tactile_image_size)
-        depth = _postprocess(config, net(x), output_size)
-        # kernel layout: rows [0, n) = left finger, [n, 2n) = right
-        return torch.stack([depth[:n, 0], depth[n:, 0]], dim=1)
-    fingers = dual_frames_to_fingers(config, frames, base_frame)
-    depth = fused_predict(config, net, fingers, output_size)
-    return depth.reshape(n, 2, *output_size)
+    kernel = use_kernel and (base_frame is None or base_frame.ndim == 3)
+    with span("serve.front_end"):
+        if kernel:
+            x = kernel_front_end(config, frames, base_frame, config.input_tactile_image_size)
+        else:
+            x = _preprocess(config, dual_frames_to_fingers(config, frames, base_frame))
+    with span("serve.unet"):
+        y = net(x)
+    with span("serve.post"):
+        depth = _postprocess(config, y, output_size)
+        if kernel:
+            # kernel layout: rows [0, n) = left finger, [n, 2n) = right
+            return torch.stack([depth[:n, 0], depth[n:, 0]], dim=1)
+        return depth.reshape(n, 2, *output_size)
 
 
 class _Serving:
@@ -147,15 +164,17 @@ class _Serving:
     @torch.inference_mode()
     def predict_depth_from_RGB(self, images, output_size: Tuple[int, int]) -> torch.Tensor:
         """(N, 3, H, W) [0,255] images -> (N, 1, *output_size) mm depth."""
-        return fused_predict(self.config, self._net(), self._tensor(images), tuple(output_size))
+        with span(CALL):
+            return fused_predict(self.config, self._net(), self._tensor(images), tuple(output_size))
 
     @torch.inference_mode()
     def predict_dual_frames(self, frames, base_frame, output_size: Tuple[int, int]) -> torch.Tensor:
         """(N, 6, H, W) dual frames (+ base) -> (N, 2, *output_size) mm depth."""
-        base = None if base_frame is None else self._tensor(base_frame)
-        return fused_predict_dual(
-            self.config, self._net(), self._tensor(frames), base, tuple(output_size)
-        )
+        with span(CALL):
+            base = None if base_frame is None else self._tensor(base_frame)
+            return fused_predict_dual(
+                self.config, self._net(), self._tensor(frames), base, tuple(output_size)
+            )
 
     def predict_dual_frames_multi(self, frames_list, base_frame, output_size) -> torch.Tensor:
         """Micro-batch entry: a list/tuple of k (1, 6, H, W) frames ->

@@ -47,6 +47,7 @@ import torch.nn.functional as F
 
 from gelslim_depth_tpu_torch.models.unet import DoubleConv, UNet, UNetConfig, full_precision
 from gelslim_depth_tpu_torch.ops.kernels.conv_int8 import Epilogue, conv2d_int8, quant_act
+from gelslim_depth_tpu_torch.utils.profiling import span
 
 
 def _quantized_sites(cfg: UNetConfig) -> List[Tuple[str, str]]:
@@ -341,14 +342,14 @@ class QuantizedUNet(nn.Module):
         if halo is not None:
             qx = halo(qx, 1)
             qx2 = None if qx2 is None else halo(qx2, 1)
-        out = conv2d_int8(
-            qx, self.w8(site), pad=1, scale=self._escale(site), qx2=qx2, offset=offset,
-            epilogue=Epilogue(
-                bn_mul=getattr(dc, f"bn{i}_scale").view(-1), bn_add=getattr(dc, f"bn{i}_shift").view(-1),
-                act=self.cfg.activation, out_dtype=dtype,
-                q_scales=tuple(self.act_scale(c) for c in consumers), store_float=not consumers,
-            ),
+        epilogue = Epilogue(
+            bn_mul=getattr(dc, f"bn{i}_scale").view(-1), bn_add=getattr(dc, f"bn{i}_shift").view(-1),
+            act=self.cfg.activation, out_dtype=dtype,
+            q_scales=tuple(self.act_scale(c) for c in consumers), store_float=not consumers,
         )
+        with span("unet.conv", conv):
+            out = conv2d_int8(qx, self.w8(site), pad=1, scale=self._escale(site), qx2=qx2, offset=offset,
+                              epilogue=epilogue)
         if halo is None:
             return out
         crop = lambda t: t[:, 1:-1].contiguous()  # noqa: E731
@@ -380,15 +381,6 @@ class QuantizedUNet(nn.Module):
             return h.permute(0, 3, 1, 2)
 
         with full_precision(dtype):
-            inc = self.net.inc
-            act = inc.double_conv[2]
-            x = x.to(dtype).contiguous(memory_format=torch.channels_last)
-            if halo is None:
-                y = F.conv2d(x, ws["inc"], padding=1)
-            else:
-                y = F.conv2d(halo(x, 2), ws["inc"], padding=(0, 1))
-            q = quant_act(nhwc(act(y * inc.bn0_scale + inc.bn0_shift).to(dtype)), self.act_scale("inc/conv2"))
-
             def to_upconv(site, q, j):  # the site's output as up_j's upconv reads it
                 if up8:
                     return self._int8(site, q, dtype, (f"up_{j}/upconv",), halo=halo)[0]
@@ -396,38 +388,59 @@ class QuantizedUNet(nn.Module):
 
             # level l's block (inc, then down_0 ...) stores its skip at its
             # consumer up_{L-2-l}/conv1's scale and its pre-pool output at
-            # down_l/conv1's; the bottom block feeds up_0's upconv
+            # down_l/conv1's, which down_l pools; the bottom block feeds
+            # up_0's upconv
             skips = []
             for level, block in enumerate(["inc"] + [f"down_{i}" for i in range(L - 1)]):
-                if level > 0:
-                    (q,) = self._int8(f"{block}/conv1", q, dtype, (f"{block}/conv2",), halo=halo)
-                if level < L - 1:
-                    skip, pre = self._int8(f"{block}/conv2", q, dtype, (f"up_{L - 2 - level}/conv1", f"down_{level}/conv1"),
-                                           halo=halo)
-                    skips.append(skip)
-                    q = max_pool_int8(pre, cfg.maxpool_size)
-                else:
-                    h = to_upconv(f"{block}/conv2", q, 0)
+                with span("unet.block", block):
+                    if level == 0:
+                        inc = self.net.inc
+                        act = inc.double_conv[2]
+                        x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+                        if halo is not None:
+                            x = halo(x, 2)
+                        with span("unet.conv", "conv1"):
+                            y = F.conv2d(x, ws["inc"], padding=1 if halo is None else (0, 1))
+                        q = quant_act(nhwc(act(y * inc.bn0_scale + inc.bn0_shift).to(dtype)),
+                                      self.act_scale("inc/conv2"))
+                    else:
+                        q = max_pool_int8(pre, cfg.maxpool_size)
+                        (q,) = self._int8(f"{block}/conv1", q, dtype, (f"{block}/conv2",), halo=halo)
+                    if level < L - 1:
+                        skip, pre = self._int8(f"{block}/conv2", q, dtype,
+                                               (f"up_{L - 2 - level}/conv1", f"down_{level}/conv1"), halo=halo)
+                        skips.append(skip)
+                    else:
+                        h = to_upconv(f"{block}/conv2", q, 0)
 
             for j in range(L - 1):
                 name, skip = f"up_{j}", skips[L - 2 - j]
-                if up8:
-                    (yq,) = conv2d_int8(
-                        h, self.w8(f"{name}/upconv"), pad=0, scale=self._escale(f"{name}/upconv"),
-                        epilogue=Epilogue(bias=self.get_buffer(_buffer_name("bias", name)), out_dtype=dtype,
-                                          shuffle=self._up(name).stride,
-                                          q_scales=(self.act_scale(f"{name}/conv1"),), store_float=False),
-                    )
-                else:
-                    y = F.conv_transpose2d(nchw(h).to(dtype), ws[name], stride=self._up(name).stride)
-                    yq = quant_act(nhwc(y + ws[f"{name}_b"]), self.act_scale(f"{name}/conv1"))
-                dy, dx = skip.shape[1] - yq.shape[1], skip.shape[2] - yq.shape[2]
-                (q,) = self._int8(f"{name}/conv1", skip, dtype, (f"{name}/conv2",), qx2=yq, offset=(dy // 2, dx // 2),
-                                  halo=halo)
-                h = self._int8(f"{name}/conv2", q, dtype, halo=halo) if j == L - 2 else to_upconv(f"{name}/conv2", q, j + 1)
+                with span("unet.block", name):
+                    if up8:
+                        epilogue = Epilogue(bias=self.get_buffer(_buffer_name("bias", name)), out_dtype=dtype,
+                                            shuffle=self._up(name).stride,
+                                            q_scales=(self.act_scale(f"{name}/conv1"),), store_float=False)
+                        with span("unet.conv", "upconv"):
+                            (yq,) = conv2d_int8(h, self.w8(f"{name}/upconv"), pad=0,
+                                                scale=self._escale(f"{name}/upconv"), epilogue=epilogue)
+                    else:
+                        h = nchw(h).to(dtype)
+                        with span("unet.conv", "upconv"):
+                            y = F.conv_transpose2d(h, ws[name], stride=self._up(name).stride)
+                        yq = quant_act(nhwc(y + ws[f"{name}_b"]), self.act_scale(f"{name}/conv1"))
+                    dy, dx = skip.shape[1] - yq.shape[1], skip.shape[2] - yq.shape[2]
+                    (q,) = self._int8(f"{name}/conv1", skip, dtype, (f"{name}/conv2",), qx2=yq,
+                                      offset=(dy // 2, dx // 2), halo=halo)
+                    if j == L - 2:
+                        h = self._int8(f"{name}/conv2", q, dtype, halo=halo)
+                    else:
+                        h = to_upconv(f"{name}/conv2", q, j + 1)
 
-            out = F.conv2d(nchw(h), ws["outc"]) + ws["outc_b"]
-            return out.float().contiguous()
+            with span("unet.block", "outc"):
+                with span("unet.conv", "conv"):
+                    out = F.conv2d(nchw(h), ws["outc"])
+                out = out + ws["outc_b"]
+                return out.float().contiguous()
 
 
 def max_pool_int8(q: torch.Tensor, p: int) -> torch.Tensor:

@@ -21,6 +21,11 @@ Eval BatchNorm folds the running statistics into one affine
 The fold is computed once, by ``fold_batch_norm``, which construction and
 ``load_state_dict`` call; the forward only applies it.
 
+Each block of the forward and each conv launch in it runs inside a
+``utils.profiling.span`` (``unet.block``, ``unet.conv``); the conv's span
+holds the conv call alone, its casts, BatchNorm and activation lie in the
+block's. Off, a span costs a call and a ``with``.
+
 Compute dtype (``to_compute_dtype``): float32 runs every conv in full
 float32, TF32 off for the forward whatever ``torch.backends.cudnn.allow_tf32``
 says, as the JAX package's ``Precision.HIGHEST`` does. bfloat16 follows
@@ -57,6 +62,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
+
+from gelslim_depth_tpu_torch.utils.profiling import span
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -145,11 +152,14 @@ class DoubleConv(nn.Module):
         conv1, _, act, conv2, _, _ = self.double_conv
         if probe is not None:
             probe("conv1", x)
-        y = F.conv2d(x.to(dtype), conv1.weight, padding=1)
+        x = x.to(dtype)
+        with span("unet.conv", "conv1"):
+            y = F.conv2d(x, conv1.weight, padding=1)
         y = act(y * self.bn0_scale + self.bn0_shift).to(dtype)
         if probe is not None:
             probe("conv2", y)
-        y = F.conv2d(y, conv2.weight, padding=1)
+        with span("unet.conv", "conv2"):
+            y = F.conv2d(y, conv2.weight, padding=1)
         return act(y * self.bn1_scale + self.bn1_shift).to(dtype)
 
 
@@ -177,7 +187,9 @@ class Up(nn.Module):
     def forward(self, x: torch.Tensor, skip: torch.Tensor, dtype: torch.dtype, probe=None) -> torch.Tensor:
         if probe is not None:
             probe("upconv", x)
-        y = F.conv_transpose2d(x.to(dtype), self.up.weight, stride=self.stride)
+        x = x.to(dtype)
+        with span("unet.conv", "upconv"):
+            y = F.conv_transpose2d(x, self.up.weight, stride=self.stride)
         y = y + self.up.bias.view(1, -1, 1, 1)
         dy = skip.shape[2] - y.shape[2]
         dx = skip.shape[3] - y.shape[3]
@@ -191,7 +203,9 @@ class OutConv(nn.Module):
         self.conv = nn.Conv2d(cin, cout, 1)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        out = F.conv2d(x.to(dtype), self.conv.weight)
+        x = x.to(dtype)
+        with span("unet.conv", "conv"):
+            out = F.conv2d(x, self.conv.weight)
         out = out + self.conv.bias.view(1, -1, 1, 1)
         return out.float()
 
@@ -245,13 +259,17 @@ class UNet(nn.Module):
             return None if probe is None else lambda conv, h: probe(f"{block}/{conv}", h)
 
         with full_precision(dtype):
-            skips = [self.inc(x, dtype, at("inc"))]
+            with span("unet.block", "inc"):
+                skips = [self.inc(x, dtype, at("inc"))]
             for i, down in enumerate(self.down):
-                skips.append(down(skips[-1], dtype, at(f"down_{i}")))
+                with span("unet.block", f"down_{i}"):
+                    skips.append(down(skips[-1], dtype, at(f"down_{i}")))
             h = skips[-1]
             for j, up in enumerate(self.up):
-                h = up(h, skips[-2 - j], dtype, at(f"up_{j}"))
-            return self.outc(h, dtype)
+                with span("unet.block", f"up_{j}"):
+                    h = up(h, skips[-2 - j], dtype, at(f"up_{j}"))
+            with span("unet.block", "outc"):
+                return self.outc(h, dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,14 @@ number. The trace gives each device op's own start and end, so
 JAX package uses ``jax.profiler``), and ``StepTimer`` is a rolling
 wall-clock step timer, as the JAX package's.
 
+``span`` marks the program's own layers: the serving call, its front end,
+U-Net and post, each U-Net block and each conv launch. Off, it costs one
+call and a ``with``; under ``recording()`` each span keeps its interval on
+``time.time_ns()``, the clock of ``torch.profiler``'s events, so a reader
+can put the device ops of a trace of the same block into the span whose
+host code launched them. ``trace`` records the spans too and writes them
+into its file on a track of their own.
+
 The JAX package's ``utils/cache.py`` (the XLA compilation cache and the
 platform pin) has no counterpart: the port compiles its kernels once per
 checkout with ``nvcc`` into ``gelslim_depth_tpu_torch/_build/``
@@ -20,10 +28,11 @@ argument.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import socket
 import time
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -74,21 +83,132 @@ def device_ms(fn, calls: int = 20) -> float:
     raise RuntimeError(f"{TRACE_ATTEMPTS} profiler traces held no device events: device time not measured")
 
 
+# ---------------------------------------------------------------------------
+# spans
+# ---------------------------------------------------------------------------
+
+CALL = "serve.call"  # the span of one serving call; every span inside it knows its index
+
+
+class _Recorder:
+    """The spans of one ``recording()``, and the indices of those open
+    (spans nest: they are opened and closed by one thread's ``with``s)."""
+
+    __slots__ = ("spans", "open")
+
+    def __init__(self):
+        self.spans: List[Span] = []
+        self.open: List[int] = []
+
+
+class Span:
+    """One recorded span, its own context manager while the recorder is
+    on: ``name`` and ``site`` (None, or where in the layer, such as a U-Net
+    block or a conv of one), ``start_ns`` and ``end_ns`` on
+    ``time.time_ns()`` (``end_ns`` None while it is open), ``parent``, the
+    index of the enclosing span in the recording, and ``call``, the index
+    of the enclosing ``serve.call`` (None outside one)."""
+
+    __slots__ = ("name", "site", "start_ns", "end_ns", "parent", "call", "_rec")
+
+    def __init__(self, rec: _Recorder, name: str, site: Optional[str]):
+        self._rec, self.name, self.site = rec, name, site
+        self.start_ns: int = 0
+        self.end_ns: Optional[int] = None
+        self.parent: Optional[int] = None
+        self.call: Optional[int] = None
+
+    def __enter__(self) -> "Span":
+        rec = self._rec
+        index = len(rec.spans)
+        self.parent = rec.open[-1] if rec.open else None
+        self.call = index if self.name == CALL else (None if self.parent is None else rec.spans[self.parent].call)
+        rec.spans.append(self)
+        rec.open.append(index)
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.end_ns = time.time_ns()
+        self._rec.open.pop()
+        return False
+
+
+_NO_SPAN = contextlib.nullcontext()
+_recorder: Optional[_Recorder] = None
+
+
+def span(name: str, site: Optional[str] = None):
+    """A context manager that records the block as a span while
+    ``recording()`` is on; off, one shared no-op (no clock read, no
+    allocation)."""
+    rec = _recorder
+    if rec is None:
+        return _NO_SPAN
+    return Span(rec, name, site)
+
+
+@contextlib.contextmanager
+def recording():
+    """Turns the span recorder on for the block and yields the list that
+    the block's spans are appended to, in the order they open; a span's
+    index in it is what ``parent`` and ``call`` name. Inside another
+    ``recording()`` it yields that one's list and leaves the recorder on."""
+    global _recorder
+    if _recorder is not None:
+        yield _recorder.spans
+        return
+    rec = _recorder = _Recorder()
+    try:
+        yield rec.spans
+    finally:
+        _recorder = None
+
+
+SPAN_TRACK = 1  # the Chrome trace's thread id of the spans' track
+
+
+def _write_spans(path: str, spans: List[Span]) -> None:
+    """Adds the closed spans to the Chrome trace at ``path`` (as
+    ``export_chrome_trace`` writes it) as complete events on a track of
+    their own in this process, on the file's clock: microseconds from its
+    ``baseTimeNanoseconds``."""
+    with open(path) as f:
+        doc = json.load(f)
+    base_ns = doc.get("baseTimeNanoseconds", 0)
+    pid = os.getpid()
+    events = doc["traceEvents"]
+    events.append({"ph": "M", "name": "thread_name", "pid": pid, "tid": SPAN_TRACK, "args": {"name": "spans"}})
+    for s in spans:
+        if s.end_ns is not None:
+            events.append({"ph": "X", "cat": "span", "name": s.name if s.site is None else f"{s.name} {s.site}",
+                           "pid": pid, "tid": SPAN_TRACK, "ts": (s.start_ns - base_ns) / 1e3,
+                           "dur": (s.end_ns - s.start_ns) / 1e3, "args": {"site": s.site}})
+    with open(path, "w") as f:
+        json.dump(doc, f)
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
     """``torch.profiler`` capture of the block, with CUDA activity when the
     process has used a card, written on exit as the Chrome trace
     ``log_dir/<host>.<pid>.pt.trace.json`` (Perfetto and TensorBoard's
-    profiler plugin read it). Yields the profiler."""
+    profiler plugin read it), with the block's spans on a track of their
+    own. Yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, f"{socket.gethostname()}.{os.getpid()}.pt.trace.json"))
+    path = os.path.join(log_dir, f"{socket.gethostname()}.{os.getpid()}.pt.trace.json")
+    with recording() as spans:
+        first = len(spans)
+        with profile(activities=activities) as prof:
+            yield prof
+        block = spans[first:]
+    prof.export_chrome_trace(path)
+    _write_spans(path, block)
 
 
 class StepTimer:
