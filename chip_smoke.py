@@ -96,6 +96,7 @@ from gelslim_depth_tpu_torch.ops.kernels import (
     fused_preprocess_dual,
     fused_preprocess_dual_reference,
 )
+from gelslim_depth_tpu_torch.ops.kernels.conv_epilogue import conv_epilogue, conv_epilogue_reference
 from gelslim_depth_tpu_torch.utils.profiling import TRACE_ATTEMPTS, busy_us, device_events, device_ms
 
 FRAME = (320, 427)
@@ -105,6 +106,9 @@ KERNEL_REPLACES = "gelslim_depth_tpu/ops/pallas/preprocess_kernel.py:41"
 CONV_SOURCE = "gelslim_depth_tpu_torch/csrc/conv2d_int8.cu"
 CONV_REPLACES = "gelslim_depth_tpu/models/quantize.py:164"
 CONV_FAST_PATH = conv_int8.PATHS[-1]  # the mainloop every flagship launch must take
+EPILOGUE_SOURCE = "gelslim_depth_tpu_torch/csrc/conv_epilogue.cu"
+EPILOGUE_REPLACES = "gelslim_depth_tpu/models/unet.py:197"
+EPILOGUES_PER_CALL = {"bf16": 22, "int8": 5}  # conv_epilogue launches a flagship serving call
 MULT = [1 / 255.0] * 3  # 0_255_to_0_1
 ADD = [0.0] * 3
 
@@ -129,6 +133,7 @@ LIBRARY_OPS = "library kernels (cuDNN convs, cuBLAS)"
 DEVICE_OP_KEYS = {
     "conv2d_int8": ("conv2d_int8",),
     "fused_preprocess_dual": ("fused_preprocess_dual",),
+    "conv_epilogue": ("conv_epilogue",),
     "cudnn layout transposes": ("nchwToNhwc", "nhwcToNchw"),
     "aten ops (BN, activation, casts, bias, pad, cat, pool)": ("at::native",),
     "memcpy/memset": ("Memcpy", "Memset"),
@@ -460,8 +465,9 @@ def cpu_reference_chain(sd, cfg, frames, base):
 def drive_main_path(cfg, sd, frames64, base):
     """The flagship Predictor, with torch's default TF32 flags (the port
     turns TF32 off itself where it runs float32): float32 kernel vs composed
-    route, bfloat16 vs float32, at N = 1, 8, 64. Returns the kernel's launch
-    count over the run."""
+    route, bfloat16 vs float32, at N = 1, 8, 64; every call launches the
+    front end once (the composed route: not at all) and conv_epilogue 22
+    times. Returns the kernels' launch counts over the run."""
     print(f"torch defaults: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
           f"float32 matmul precision {torch.get_float32_matmul_precision()!r}", flush=True)
     pred16 = Predictor(cfg, sd, compute_dtype=torch.bfloat16)
@@ -472,6 +478,8 @@ def drive_main_path(cfg, sd, frames64, base):
         return fused_predict_dual(cfg, pred32.net, frames, base, FRAME, use_kernel=False)
 
     fused_preprocess_dual.launches = 0
+    conv_epilogue.launches = 0
+    eps = EPILOGUES_PER_CALL["bf16"]
     for n in (1, 8, 64):
         frames = frames64[:n]
         outs = {}
@@ -480,10 +488,10 @@ def drive_main_path(cfg, sd, frames64, base):
             ("f32", lambda: pred32.predict_dual_frames(frames, base, FRAME), 1),
             ("f32_plain", lambda: composed_route(frames), 0),
         ):
-            before = fused_preprocess_dual.launches
+            before = fused_preprocess_dual.launches, conv_epilogue.launches
             outs[name] = run()
-            check(fused_preprocess_dual.launches == before + launched,
-                  f"{name} N={n}: kernel launches rose by {fused_preprocess_dual.launches - before}")
+            rose = fused_preprocess_dual.launches - before[0], conv_epilogue.launches - before[1]
+            check(rose == (launched, eps), f"{name} N={n}: launches rose by {rose}, want ({launched}, {eps} conv_epilogue)")
         torch.cuda.synchronize()
         for name, out in outs.items():
             check(tuple(out.shape) == (n, 2, *FRAME), f"{name} N={n}: shape {tuple(out.shape)}")
@@ -495,8 +503,8 @@ def drive_main_path(cfg, sd, frames64, base):
               f"[{outs['f32'].min().item():.3f}, {outs['f32'].max().item():.3f}] mm", flush=True)
         check(route_err < 1e-4, f"N={n}: f32 kernel route differs from composed route by {route_err} mm")
         check(rmse16 < 0.05, f"N={n}: bf16 vs f32 RMSE {rmse16} mm")
-    launches = fused_preprocess_dual.launches
-    check(launches > 0, "the main path launched no fused_preprocess_dual")
+    launches = {"fused_preprocess_dual": fused_preprocess_dual.launches, "conv_epilogue": conv_epilogue.launches}
+    check(launches["fused_preprocess_dual"] > 0, "the main path launched no fused_preprocess_dual")
 
     # the whole path against the independent CPU reference, one dual frame
     got = pred32.predict_dual_frames(frames64[:1], base, FRAME).cpu()
@@ -511,19 +519,20 @@ def drive_main_path(cfg, sd, frames64, base):
 
 @contextlib.contextmanager
 def plain_int8_convs():
-    """Every quantized conv of the int8 U-Net as the kernel's plain twin,
-    for holding the int8 route against the same model on plain ops. Fails
-    if the kernel launched inside: the comparison then held the kernel
-    against itself."""
-    kernel = quantize_module.conv2d_int8
-    quantize_module.conv2d_int8 = conv2d_int8_reference
-    before = conv2d_int8.launches
+    """Every quantized conv of the int8 U-Net, and every float conv's
+    epilogue, as the kernels' plain twins, for holding the int8 route
+    against the same model on plain ops. Fails if a kernel launched inside:
+    the comparison then held the kernel against itself."""
+    kernels = quantize_module.conv2d_int8, quantize_module.conv_epilogue
+    quantize_module.conv2d_int8, quantize_module.conv_epilogue = conv2d_int8_reference, conv_epilogue_reference
+    before = conv2d_int8.launches, conv_epilogue.launches
     try:
         yield
     finally:
-        quantize_module.conv2d_int8 = kernel
-    check(conv2d_int8.launches == before,
-          f"the plain-twin route launched conv2d_int8 {conv2d_int8.launches - before} times")
+        quantize_module.conv2d_int8, quantize_module.conv_epilogue = kernels
+    check((conv2d_int8.launches, conv_epilogue.launches) == before,
+          f"the plain-twin route launched conv2d_int8 {conv2d_int8.launches - before[0]} and conv_epilogue "
+          f"{conv_epilogue.launches - before[1]} times")
 
 
 def drive_int8_path(pred16, frames64, base):
@@ -539,21 +548,22 @@ def drive_int8_path(pred16, frames64, base):
     sizes = (1, 8, 64)
     with torch.inference_mode():
         ref = {n: pred16.predict_dual_frames(frames64[:n], base, FRAME) for n in sizes}
-    fused_preprocess_dual.launches = 0
-    conv2d_int8.launches = 0
-    conv2d_int8.launches_by_path = dict.fromkeys(conv_int8.PATHS, 0)
+    reset_launches()
     qpred = pred16.quantize(frames64[:4], base)
     sites = len(quantize_module._quantized_sites(qpred.q.cfg))
     check(sites == 17, f"{sites} quantized sites on the flagship")
     print(f"int8 quantize (bf16 flagship, 4 calibration dual frames): delta_mm {qpred.delta_mm:.4e}", flush=True)
     check(qpred.delta_mm < 0.05, f"int8 delta_mm {qpred.delta_mm} mm")
     outs = {}
+    eps = EPILOGUES_PER_CALL["int8"]
     for n in sizes:
-        before = fused_preprocess_dual.launches, conv2d_int8.launches, conv2d_int8.launches_by_path[CONV_FAST_PATH]
+        before = (fused_preprocess_dual.launches, conv2d_int8.launches, conv2d_int8.launches_by_path[CONV_FAST_PATH],
+                  conv_epilogue.launches)
         outs[n] = qpred.predict_dual_frames(frames64[:n], base, FRAME)
         rose = (fused_preprocess_dual.launches - before[0], conv2d_int8.launches - before[1],
-                conv2d_int8.launches_by_path[CONV_FAST_PATH] - before[2])
-        check(rose == (1, sites, sites), f"int8 N={n}: launches rose by {rose}, want (1, {sites}, {sites} {CONV_FAST_PATH})")
+                conv2d_int8.launches_by_path[CONV_FAST_PATH] - before[2], conv_epilogue.launches - before[3])
+        check(rose == (1, sites, sites, eps),
+              f"int8 N={n}: launches rose by {rose}, want (1, {sites}, {sites} {CONV_FAST_PATH}, {eps} conv_epilogue)")
     qpred_up = pred16.quantize(frames64[:4], base, quantize_upconvs=True)
     n_up = len(quantize_module._upconv_sites(qpred_up.q.cfg))
     before = conv2d_int8.launches, conv2d_int8.launches_by_path[CONV_FAST_PATH]
@@ -562,8 +572,7 @@ def drive_int8_path(pred16, frames64, base):
     check(rose == (sites + n_up,) * 2 and sites + n_up == 21,
           f"int8 upconvs N=8: conv2d_int8 launches rose by {rose}, want 21 {CONV_FAST_PATH}")
     torch.cuda.synchronize()
-    launches = {"fused_preprocess_dual": fused_preprocess_dual.launches, "conv2d_int8": conv2d_int8.launches,
-                "conv2d_int8_by_path": dict(conv2d_int8.launches_by_path)}
+    launches = read_launches()
     print(f"int8 main path launches: {launches}", flush=True)
     check(launches["conv2d_int8"] > 0, "the int8 path launched no conv2d_int8")
     check(launches["conv2d_int8_by_path"] == {**dict.fromkeys(conv_int8.PATHS, 0),
@@ -644,6 +653,118 @@ def measure_conv_sites(peaks, g):
     return out
 
 
+def epilogue_sites(n_img: int):
+    """The flagship's conv_epilogue launches at n_img finger images, as the
+    serving graphs make them: (graph, site, y's (N, C, H, W), y's layout,
+    'bn' or 'bias', int8 output). The int8 graph's float convs (inc/conv1,
+    the upconvs) run channels-last and quantize for the next int8 conv; the
+    bf16 graph's run NCHW and store bf16."""
+    cfg = GelslimConfig()
+    ucfg = cfg.unet_config()
+    dims, L = ucfg.layer_dimensions, ucfg.num_levels
+    hw = [tuple(cfg.input_tactile_image_size)]
+    for _ in range(L - 1):
+        hw.append((hw[-1][0] // ucfg.maxpool_size, hw[-1][1] // ucfg.maxpool_size))
+    s = ucfg.upconv_stride
+    up = [(dims[L - 1 - j] // 2, s * hw[L - 1 - j][0], s * hw[L - 1 - j][1]) for j in range(L - 1)]
+    sites = [("int8", "inc/conv1", (n_img, dims[0], *hw[0]), "channels_last", "bn", True)]
+    sites += [("int8", f"up_{j}/upconv", (n_img, *up[j]), "channels_last", "bias", True) for j in range(L - 1)]
+    for level, block in enumerate(["inc"] + [f"down_{i}" for i in range(L - 1)]):
+        sites += [("bf16", f"{block}/{c}", (n_img, dims[level], *hw[level]), "nchw", "bn", False)
+                  for c in ("conv1", "conv2")]
+    for j in range(L - 1):
+        level = L - 2 - j
+        sites += [("bf16", f"up_{j}/upconv", (n_img, *up[j]), "nchw", "bias", False)]
+        sites += [("bf16", f"up_{j}/{c}", (n_img, dims[level], *hw[level]), "nchw", "bn", False)
+                  for c in ("conv1", "conv2")]
+    return sites
+
+
+def epilogue_inputs(g, shape, layout, mode, int8, act="relu"):
+    """A bf16 conv output of the site's shape and layout, with a NaN and
+    both infinities among its values; float32 BN vectors and the
+    activation, or a bf16 bias; the next site's scale."""
+    c = shape[1]
+    y = (torch.randn(shape, generator=g, device="cuda") * 3).to(torch.bfloat16)
+    if layout == "channels_last":
+        y = y.contiguous(memory_format=torch.channels_last)
+    flat = y.view(-1) if y.is_contiguous() else y.permute(0, 2, 3, 1).reshape(-1)
+    flat[[5, 17, 40]] = torch.tensor([float("nan"), float("inf"), -float("inf")], device="cuda").to(y.dtype)
+    vec = lambda lo, hi: torch.rand(c, generator=g, device="cuda") * (hi - lo) + lo  # noqa: E731
+    kw = dict(bias=vec(-1, 1).to(torch.bfloat16)) if mode == "bias" else \
+        dict(bn_mul=vec(0.2, 1.8), bn_add=vec(-0.5, 0.5), act=act)
+    if int8:
+        kw["q_scale"] = torch.full((1,), 0.05, device="cuda")
+    return y, kw
+
+
+def same_bits(a, b) -> bool:
+    """Bit for bit where finite; NaN where the other is NaN."""
+    if a.is_floating_point():
+        nan = torch.isnan(a)
+        if not torch.equal(nan, torch.isnan(b)):
+            return False
+        a, b = a.masked_fill(nan, 0), b.masked_fill(nan, 0)
+    return torch.equal(a, b)
+
+
+def check_conv_epilogue(g):
+    """conv_epilogue vs its plain twin (the aten chain) at every flagship
+    epilogue site at 2 finger images, and on the odd shapes, layouts and
+    activations the flagship does not reach, with a NaN and both
+    infinities among the inputs: bit for bit, NaN where the twin has NaN.
+    Returns the largest |diff| of the finite outputs (0 when all agree)."""
+    odd = [((2, 12, 9, 11), "channels_last", "bn", True, "relu"), ((3, 5, 2, 3), "nchw", "bn", False, "relu"),
+           ((2, 1024, 10, 13), "nchw", "bn", True, "relu"), ((2, 64, 17, 23), "channels_last", "bn", False, "tanh"),
+           ((2, 64, 17, 23), "nchw", "bn", True, "mish")]
+    cases = [(site, shape, layout, mode, int8, "relu") for _, site, shape, layout, mode, int8 in epilogue_sites(2)]
+    cases += [("extra", *c) for c in odd]
+    worst = 0.0
+    for site, shape, layout, mode, int8, act in cases:
+        y, kw = epilogue_inputs(g, shape, layout, mode, int8, act)
+        got, want = conv_epilogue(y, **kw), conv_epilogue_reference(y, **kw)
+        torch.cuda.synchronize()
+        finite = torch.isfinite(want.float()) & torch.isfinite(got.float())
+        diff = (got.float() - want.float())[finite].abs().max().item()
+        tag = f"{site} {tuple(shape)} {layout} {mode} {kw.get('act', 'none')} -> {got.dtype}"
+        print(f"conv_epilogue vs plain: {tag}: max|diff| {diff:.3e}", flush=True)
+        check(got.dtype == want.dtype and got.stride() == want.stride(), f"conv_epilogue {tag}: layout")
+        check(same_bits(got, want), f"conv_epilogue disagrees with plain ({tag}): {diff}")
+        worst = max(worst, diff)
+    return worst
+
+
+def measure_conv_epilogue_sites(peaks, g):
+    """conv_epilogue at every flagship epilogue site at N=64 dual frames
+    (128 finger images), both graphs: kernel and plain twin device ms, and
+    the byte bound (y read once, the output written once, at the card's
+    bandwidth). Returns {graph: summed ms, launches a call, and each site}."""
+    bw = peaks[0]
+    out = {}
+    for graph, site, shape, layout, mode, int8 in epilogue_sites(128):
+        y, kw = epilogue_inputs(g, shape, layout, mode, int8)
+        bound = 1e3 * y.numel() * (y.element_size() + (1 if int8 else y.element_size())) / bw
+        kernel_ms = kernel_device_ms(lambda: conv_epilogue(y, **kw), bound, f"conv_epilogue {graph} {site}")
+        plain_ms = device_ms(lambda: conv_epilogue_reference(y, **kw), calls=5)
+        rec = out.setdefault(graph, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "launches": 0, "sites": {}})
+        rec["ms"] += kernel_ms
+        rec["plain_ms"] += plain_ms
+        rec["bound_ms"] += bound
+        rec["launches"] += 1
+        rec["sites"][site] = {"shape": list(shape), "layout": layout, "int8": int8, "ms": kernel_ms,
+                              "plain_ms": plain_ms, "bound_ms": bound}
+        print(f"conv_epilogue {graph} {site} N=64 {tuple(shape)} {layout} {mode} -> {'int8' if int8 else 'bf16'}: "
+              f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({100 * bound / kernel_ms:.1f}% of it)", flush=True)
+        del y
+        torch.cuda.empty_cache()
+    for graph, rec in out.items():
+        print(f"conv_epilogue {graph} graph N=64: {rec['launches']} launches a call, kernel {rec['ms']:.4f} ms, "
+              f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({100 * rec['bound_ms'] / rec['ms']:.1f}% of it)", flush=True)
+    return out
+
+
 def measure(pred16, qpred, frames64, base, peaks):
     """Kernel, plain, library and bound times of the preprocess kernel, each
     the device time of one call; bf16 and int8 end-to-end call times and
@@ -709,11 +830,12 @@ def reset_launches() -> None:
     fused_preprocess_dual.launches = 0
     conv2d_int8.launches = 0
     conv2d_int8.launches_by_path = dict.fromkeys(conv_int8.PATHS, 0)
+    conv_epilogue.launches = 0
 
 
 def read_launches() -> dict:
     return {"fused_preprocess_dual": fused_preprocess_dual.launches, "conv2d_int8": conv2d_int8.launches,
-            "conv2d_int8_by_path": dict(conv2d_int8.launches_by_path)}
+            "conv2d_int8_by_path": dict(conv2d_int8.launches_by_path), "conv_epilogue": conv_epilogue.launches}
 
 
 def drive_entry():
@@ -791,7 +913,7 @@ def drive_engine(pred16, qpred, frames64, base, e2e):
     records and the launches over the runs."""
     host = [f.cpu().numpy() for f in frames64]
     sites = len(quantize_module._quantized_sites(qpred.q.cfg))
-    out, total = {}, dict.fromkeys(("fused_preprocess_dual", "conv2d_int8"), 0)
+    out, total = {}, dict.fromkeys(("fused_preprocess_dual", "conv2d_int8", "conv_epilogue"), 0)
     for tag, pred in (("bf16", pred16), ("int8", qpred)):
         with torch.inference_mode():
             want = [pred.predict_dual_frames(f[None], base, FRAME).cpu().numpy() for f in frames64]
@@ -875,7 +997,7 @@ def drive_export(cfg, sd, pred16, qpred, frames64, base):
     miss that bar); N=2 runs two b1 graphs. Times the exported and the
     live call at N=1 and N=64. Returns the records and the launches."""
     pred32 = Predictor(cfg, sd)
-    out, total = {}, dict.fromkeys(("fused_preprocess_dual", "conv2d_int8"), 0)
+    out, total = {}, dict.fromkeys(("fused_preprocess_dual", "conv2d_int8", "conv_epilogue"), 0)
     sites = len(quantize_module._quantized_sites(qpred.q.cfg))
     with tempfile.TemporaryDirectory() as tmp:
         for tag, pred in (("int8", qpred), ("bf16", pred16), ("f32", pred32)):
@@ -1996,7 +2118,7 @@ def main() -> None:
     peaks = card_peaks(kind)
 
     t0 = time.perf_counter()
-    names = ("fused_preprocess_dual", "conv2d_int8")
+    names = ("fused_preprocess_dual", "conv2d_int8", "conv_epilogue")
     build.build_all(names)
     for name in names:
         build.load_library(name)
@@ -2005,6 +2127,7 @@ def main() -> None:
     g = torch.Generator(device="cuda").manual_seed(0)
     max_err = check_kernel(g)
     conv_err = check_conv_int8(g)
+    epilogue_err = check_conv_epilogue(g)
 
     cfg = flagship_config()
     sd = seeded_state_dict(cfg.unet_config(), seed=0)
@@ -2022,6 +2145,7 @@ def main() -> None:
     # steps (float64, tanh, TF32 controls) a trace once held no device events
     timings, e2e = measure(pred16, qpred, frames64, base, peaks)
     sites = measure_conv_sites(peaks, g)
+    epilogues = measure_conv_epilogue_sites(peaks, g)
     entry_launches = drive_entry()
     engine, engine_launches = drive_engine(pred16, qpred, frames64, base, e2e)
     exported, export_launches = drive_export(cfg, sd, pred16, qpred, frames64, base)
@@ -2045,7 +2169,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as workdir:
         convergence, convergence_launches = drive_convergence(workdir)
     # every path's launches, each counted from 0 just before the path ran
-    path_launches = {"main": {"fused_preprocess_dual": launches}, "int8": int8_launches, "entry": entry_launches,
+    path_launches = {"main": launches, "int8": int8_launches, "entry": entry_launches,
                      "engine": engine_launches, "export": export_launches, "meshgen": meshgen_launches,
                      "bilinear": bilinear_launches, **parallel_launches, **train_launches,
                      "cli_data_prep": cli_launches, **convergence_launches}
@@ -2077,9 +2201,22 @@ def main() -> None:
         "bound_by": "operations" if sums["ops_ms"] >= sums["bytes_ms"] else "bytes",
         "library_ms": sums["library_ms"],
         "sites": list(sites),
+    }, {
+        # times summed over each serving graph's epilogue sites at N=64
+        "name": "conv_epilogue",
+        "route": "cuda",
+        "source": EPILOGUE_SOURCE,
+        "replaces": EPILOGUE_REPLACES,
+        "launches": sum(v.get("conv_epilogue", 0) for v in path_launches.values()),
+        "max_abs_err": epilogue_err,
+        "ms": sum(v["ms"] for v in epilogues.values()),
+        "plain_ms": sum(v["plain_ms"] for v in epilogues.values()),
+        "bound_ms": sum(v["bound_ms"] for v in epilogues.values()),
+        "bound_by": "bytes",
+        "graphs": {k: {kk: vv for kk, vv in v.items() if kk != "sites"} for k, v in epilogues.items()},
     }]
     print(json.dumps({"end_to_end": e2e, "kernel_N1": timings[1], "conv2d_int8_sites_N64": sites,
-                      "launches_by_path": path_launches}))
+                      "conv_epilogue_N64": epilogues, "launches_by_path": path_launches}))
     print(json.dumps({"engine": engine, "export": exported, "bilinear": bilinear}))
     print(json.dumps({"training": training}))
     print(json.dumps({"meshgen": meshgen, "cli_data_prep": cli_run}))

@@ -10,7 +10,10 @@ scheme, rounding point for rounding point:
 - Quantized: both convs of every DoubleConv except the first (``inc/conv1``
   keeps the 3-channel image in float), and optionally the transposed convs
   whose kernel equals their stride, as a row-split 1x1 conv. The 1x1 head,
-  the float upconvs and ``inc/conv1`` run in the compute dtype.
+  the float upconvs and ``inc/conv1`` run in the compute dtype; the float
+  upconvs' and ``inc/conv1``'s epilogues (bias, or BatchNorm and the
+  activation, the rounding, and the quantization for the next int8 conv)
+  are one ``conv_epilogue`` each.
 - Each quantized conv is ``conv2d_int8``: int32 sums, then one epilogue
   ``float(acc) * (s_x * s_w[o])``, the folded eval BatchNorm and the
   activation, rounded to the compute dtype, and stored int8 at its
@@ -46,6 +49,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gelslim_depth_tpu_torch.models.unet import DoubleConv, UNet, UNetConfig, full_precision
+from gelslim_depth_tpu_torch.ops.kernels.conv_epilogue import conv_epilogue
 from gelslim_depth_tpu_torch.ops.kernels.conv_int8 import Epilogue, conv2d_int8, quant_act
 from gelslim_depth_tpu_torch.utils.profiling import span
 
@@ -374,9 +378,6 @@ class QuantizedUNet(nn.Module):
         ws = self._float_weights(dtype)
         up8 = self.has_int8_upconvs
 
-        def nhwc(y):  # a channels-last NCHW tensor's NHWC view
-            return y.permute(0, 2, 3, 1).contiguous()
-
         def nchw(h):
             return h.permute(0, 3, 1, 2)
 
@@ -401,8 +402,9 @@ class QuantizedUNet(nn.Module):
                             x = halo(x, 2)
                         with span("unet.conv", "conv1"):
                             y = F.conv2d(x, ws["inc"], padding=1 if halo is None else (0, 1))
-                        q = quant_act(nhwc(act(y * inc.bn0_scale + inc.bn0_shift).to(dtype)),
-                                      self.act_scale("inc/conv2"))
+                        with span("unet.epilogue", "conv1"):
+                            q = conv_epilogue(y, bn_mul=inc.bn0_scale, bn_add=inc.bn0_shift, act=act.name,
+                                              q_scale=self.act_scale("inc/conv2"))
                     else:
                         q = max_pool_int8(pre, cfg.maxpool_size)
                         (q,) = self._int8(f"{block}/conv1", q, dtype, (f"{block}/conv2",), halo=halo)
@@ -427,7 +429,8 @@ class QuantizedUNet(nn.Module):
                         h = nchw(h).to(dtype)
                         with span("unet.conv", "upconv"):
                             y = F.conv_transpose2d(h, ws[name], stride=self._up(name).stride)
-                        yq = quant_act(nhwc(y + ws[f"{name}_b"]), self.act_scale(f"{name}/conv1"))
+                        with span("unet.epilogue", "upconv"):
+                            yq = conv_epilogue(y, bias=ws[f"{name}_b"], q_scale=self.act_scale(f"{name}/conv1"))
                     dy, dx = skip.shape[1] - yq.shape[1], skip.shape[2] - yq.shape[2]
                     (q,) = self._int8(f"{name}/conv1", skip, dtype, (f"{name}/conv2",), qx2=yq,
                                       offset=(dy // 2, dx // 2), halo=halo)

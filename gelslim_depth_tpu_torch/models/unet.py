@@ -23,8 +23,13 @@ The fold is computed once, by ``fold_batch_norm``, which construction and
 
 Each block of the forward and each conv launch in it runs inside a
 ``utils.profiling.span`` (``unet.block``, ``unet.conv``); the conv's span
-holds the conv call alone, its casts, BatchNorm and activation lie in the
-block's. Off, a span costs a call and a ``with``.
+holds the conv call alone, its casts lie in the block's. Each conv's
+epilogue (the BatchNorm affine, activation and cast of a DoubleConv conv,
+the upconv's bias add) is one ``conv_epilogue`` call in a ``unet.epilogue``
+span beside the conv's, in the block's; where autograd records (grad
+enabled and the conv's output requires grad) it stays the chain of aten
+ops that the kernel equals bit for bit. Off, a span costs a call and a
+``with``.
 
 Compute dtype (``to_compute_dtype``): float32 runs every conv in full
 float32, TF32 off for the forward whatever ``torch.backends.cudnn.allow_tf32``
@@ -63,6 +68,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from gelslim_depth_tpu_torch.ops.kernels.conv_epilogue import conv_epilogue
 from gelslim_depth_tpu_torch.utils.profiling import span
 
 BN_EPS = 1e-5
@@ -114,6 +120,12 @@ def _no_cudnn_tf32():
         torch.backends.cudnn.allow_tf32 = prev
 
 
+def records_grad(y: torch.Tensor) -> bool:
+    """Whether autograd records an op on y: the forward then keeps the
+    chain of aten ops that ``conv_epilogue`` replaces, which has gradients."""
+    return torch.is_grad_enabled() and y.requires_grad
+
+
 def full_precision(dtype: torch.dtype):
     """TF32 off for cuDNN's convs while float32 runs, as the JAX package's
     ``Precision.HIGHEST`` asks; bfloat16 leaves the flag alone. A train
@@ -155,12 +167,23 @@ class DoubleConv(nn.Module):
         x = x.to(dtype)
         with span("unet.conv", "conv1"):
             y = F.conv2d(x, conv1.weight, padding=1)
-        y = act(y * self.bn0_scale + self.bn0_shift).to(dtype)
+        y = bn_act(y, self.bn0_scale, self.bn0_shift, act, "conv1")
         if probe is not None:
             probe("conv2", y)
         with span("unet.conv", "conv2"):
             y = F.conv2d(y, conv2.weight, padding=1)
-        return act(y * self.bn1_scale + self.bn1_shift).to(dtype)
+        return bn_act(y, self.bn1_scale, self.bn1_shift, act, "conv2")
+
+
+def bn_act(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, act: Activation, site: str) -> torch.Tensor:
+    """A DoubleConv conv's folded eval BatchNorm (its (1, C, 1, 1) scale
+    and shift) and activation of the conv's output y, rounded to y's dtype:
+    one ``conv_epilogue`` in a ``unet.epilogue`` span, or the aten chain
+    where autograd records."""
+    if records_grad(y):
+        return act(y * scale + shift).to(y.dtype)
+    with span("unet.epilogue", site):
+        return conv_epilogue(y, bn_mul=scale, bn_add=shift, act=act.name)
 
 
 class Down(nn.Module):
@@ -190,7 +213,11 @@ class Up(nn.Module):
         x = x.to(dtype)
         with span("unet.conv", "upconv"):
             y = F.conv_transpose2d(x, self.up.weight, stride=self.stride)
-        y = y + self.up.bias.view(1, -1, 1, 1)
+        if records_grad(y):
+            y = y + self.up.bias.view(1, -1, 1, 1)
+        else:
+            with span("unet.epilogue", "upconv"):
+                y = conv_epilogue(y, bias=self.up.bias)
         dy = skip.shape[2] - y.shape[2]
         dx = skip.shape[3] - y.shape[3]
         y = F.pad(y, [dx // 2, dx - dx // 2, dy // 2, dy - dy // 2])

@@ -4,6 +4,10 @@
   gelslim_depth_tpu/ops/pallas/preprocess_kernel.py:_kernel)
 - conv_int8.conv2d_int8  (replaces XLA's s8 x s8 -> s32 convolution and dot
   of gelslim_depth_tpu/models/quantize.py:164 and :136)
+- conv_epilogue.conv_epilogue  (replaces the elementwise passes XLA fuses
+  into the float convs' epilogues: gelslim_depth_tpu/models/unet.py:197,
+  :229 and :275, quantize.py:156); the module shares the function's name, so it
+  is imported from the module, not from here
 """
 
 from gelslim_depth_tpu_torch.ops.kernels.conv_int8 import (

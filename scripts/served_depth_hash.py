@@ -1,0 +1,48 @@
+"""The depth a tree's program serves in each benchmark cell, hashed: every
+pool input of the cell, made from a seed as ``benchmark/run.py`` makes it,
+served by the ``gelslim_depth_tpu_torch`` package of the given tree, one
+sha256 of the depth bytes a cell and seed. Two trees whose hashes agree
+serve the same depth bit for bit. Run it once per tree on one card:
+
+    python3 scripts/served_depth_hash.py _archive/parent 2718281828 1618033988
+    python3 scripts/served_depth_hash.py . 2718281828 1618033988
+
+Prints one line a cell and seed: ``depth <cell> seed=<n> sha256=<hex>``.
+The tree's own ``benchmark/`` makes the inputs. Needs a CUDA device.
+"""
+
+import hashlib
+import os
+import sys
+
+CELLS = ("int8_batch64", "bf16_batch64")
+
+
+def main() -> None:
+    tree = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else ".")
+    seeds = [int(s) for s in sys.argv[2:]] or [2718281828]
+    sys.path.insert(0, tree)
+    os.chdir(tree)
+    import torch
+
+    from benchmark import harness, serving
+
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    for name in CELLS:
+        for seed in seeds:
+            cell = harness.find_cell(name)
+            pool_inputs, base, calib, sd = serving.serving_inputs(cell, seed, dev)
+            pred = serving.serving_system(cell, sd, calib, base, dev)
+            frame = tuple(cell.config["frame_size"])
+            h = hashlib.sha256()
+            with torch.inference_mode():
+                for x in pool_inputs:
+                    h.update(pred.predict_dual_frames(x, base, frame).cpu().numpy().tobytes())
+            print(f"depth {name} seed={seed} sha256={h.hexdigest()}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

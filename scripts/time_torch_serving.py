@@ -1,8 +1,9 @@
 """Host time of one flagship serving call at N=1 dual frame, bfloat16 and
 int8, through the ``gelslim_depth_tpu_torch`` package of a given source
 tree: ``Predictor.predict_dual_frames`` and the quantized predictor's, each
-ending in a synchronize. For comparing two trees on one card (the PyTorch
-port's per-call host overhead), run it once per tree, in turns:
+ending in a synchronize; and the ``StreamingEngine`` at micro-batch 1 on
+both. For comparing two trees on one card (the PyTorch port's per-call
+host overhead), run it once per tree, in turns:
 
     python3 scripts/time_torch_serving.py _archive/parent   # parent
     python3 scripts/time_torch_serving.py .                 # change
@@ -10,10 +11,12 @@ port's per-call host overhead), run it once per tree, in turns:
     python3 scripts/time_torch_serving.py _archive/parent   # parent
 
 Prints one JSON line: the tree, the card and its power limit, per path
-the median call ms of each round (20 calls after 3 warm-up calls), and
-the host µs a launch of each kernel's wrapper takes at a small shape
-(500 launches a round, none waited for: the per-launch host overhead).
-Needs a CUDA device.
+the median call ms of each round (20 calls after 3 warm-up calls), the
+engine's dual frames/s at micro-batch 1 and two dispatch slots (256 host
+frames submitted back to back, then drained; 3 rounds), and the host µs a
+launch of each kernel's wrapper takes at a small shape (500 launches a
+round, none waited for: the per-launch host overhead), where the tree has
+the kernel. Needs a CUDA device.
 """
 
 import json
@@ -30,7 +33,7 @@ def main() -> None:
     import numpy as np
     import torch
 
-    from gelslim_depth_tpu_torch import GelslimConfig, Predictor
+    from gelslim_depth_tpu_torch import GelslimConfig, Predictor, StreamingEngine
     from gelslim_depth_tpu_torch.models.unet import init_unet
 
     if not torch.cuda.is_available():
@@ -83,15 +86,37 @@ def main() -> None:
                   q_scales=(torch.full((1,), 0.05, device="cuda"),), store_float=False)
     small = frames[:1, :, :16, :22].contiguous(), base[:, :16, :22].contiguous()
 
+    def engine_fps(pred):
+        host = [f.cpu().numpy() for f in frames]
+        eng = StreamingEngine(pred, (320, 427), base_frame=base, max_inflight=256, drop_policy="block",
+                              microbatch=1, max_dispatches=2)
+        torch.cuda.synchronize()
+        for i in range(256):
+            eng.submit(host[i % len(host)])
+        eng.drain()
+        return eng.stats()["throughput_fps"]
+
     out = {"tree": tree, "card": card, "torch": torch.__version__}
     with torch.inference_mode():
         for tag, pred in (("bf16_N1", pred16), ("int8_N1", qpred)):
             out[tag] = [call_ms(lambda: pred.predict_dual_frames(frames[:1], base, (320, 427))) for _ in range(5)]
+    for tag, pred in (("bf16_engine_mb1_fps", pred16), ("int8_engine_mb1_fps", qpred)):
+        engine_fps(pred)  # warm-up
+        out[tag] = [engine_fps(pred) for _ in range(3)]
+    with torch.inference_mode():
         out["conv2d_int8_enqueue_us"] = [
             enqueue_us(lambda: conv2d_int8(qx, w, pad=1, scale=vec, epilogue=ep)) for _ in range(5)]
         out["fused_preprocess_dual_enqueue_us"] = [
             enqueue_us(lambda: fused_preprocess_dual(*small, [1 / 255.0] * 3, [0.0] * 3, out_size=(8, 11)))
             for _ in range(5)]
+        try:
+            from gelslim_depth_tpu_torch.ops.kernels.conv_epilogue import conv_epilogue
+        except ImportError:  # a tree without the kernel
+            conv_epilogue = None
+        if conv_epilogue is not None:
+            y = torch.randn((1, 64, 8, 8), generator=g, device="cuda").to(torch.bfloat16)
+            out["conv_epilogue_enqueue_us"] = [
+                enqueue_us(lambda: conv_epilogue(y, bn_mul=vec, bn_add=vec, act="relu")) for _ in range(5)]
     print(json.dumps(out), flush=True)
 
 

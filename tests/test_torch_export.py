@@ -130,8 +130,9 @@ def test_dispatch_composition_avoids_padding_waste(tmp_path, predictors):
 @pytest.mark.parametrize("upconvs", [False, True])
 def test_export_roundtrip_int8(tmp_path, predictors, upconvs):
     """The int8 graph exports with its int8 weights and static activation
-    scales inside, its quantized convs as gelslim::conv2d_int8 nodes, and
-    serves bit for bit as the live QuantizedPredictor."""
+    scales inside, its quantized convs as gelslim::conv2d_int8 nodes, the
+    epilogues of inc/conv1 and the float upconvs as gelslim::conv_epilogue
+    nodes, and serves bit for bit as the live QuantizedPredictor."""
     _, pred = predictors
     frames, base = _data(12)
     qpred = pred.quantize(frames, base, quantize_upconvs=upconvs)
@@ -139,9 +140,11 @@ def test_export_roundtrip_int8(tmp_path, predictors, upconvs):
     path = export_predictor(qpred, FRAME, path=str(tmp_path / "q.gsx"), batch_sizes=(2,), frame_size=FRAME)
     served = ExportedPredictor.load(path)
     assert served.meta["kind"] == "int8_ptq"
-    nodes = [n for n in served._graphs[2].graph.nodes if "gelslim" in str(n.target)]
-    assert len(nodes) == len(qpred.q.sites)
-    assert all(str(n.target) == "gelslim.conv2d_int8.default" for n in nodes)
+    nodes = [str(n.target) for n in served._graphs[2].graph.nodes if "gelslim" in str(n.target)]
+    float_upconvs = 0 if upconvs else len(CFG_KW["CNN_dimensions"]) - 1
+    assert nodes.count("gelslim.conv2d_int8.default") == len(qpred.q.sites)
+    assert nodes.count("gelslim.conv_epilogue.default") == 1 + float_upconvs
+    assert len(nodes) == len(qpred.q.sites) + 1 + float_upconvs
     got = served(frames[:2], base)
     want = qpred.predict_dual_frames(frames[:2], base, FRAME)
     assert torch.equal(got, want)

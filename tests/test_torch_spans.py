@@ -6,7 +6,10 @@ convs on ``conv2d_int8``'s plain twin) at dims (8, 16, 32).
 A serving call is one ``serve.call`` holding ``serve.front_end``,
 ``serve.unet`` and ``serve.post``; the U-Net's 2L - 1 blocks and its head
 ``outc`` are ``unet.block`` spans, and each conv launch, 2 a DoubleConv,
-an upconv an up block and the head, a ``unet.conv`` span inside its block.
+an upconv an up block and the head, a ``unet.conv`` span inside its block,
+followed, where its epilogue is a ``conv_epilogue`` call, by that call's
+``unet.epilogue`` span (every float conv but the head: all of them in the
+float graph, ``inc/conv1`` and the upconvs in the int8 graph).
 Span times share ``torch.profiler``'s clock, so each conv's aten event
 lies inside its conv's span once both are on one time base."""
 
@@ -45,6 +48,10 @@ BLOCKS = ["inc"] + [f"down_{i}" for i in range(L - 1)] + [f"up_{j}" for j in ran
 CONVS = {"inc": ["conv1", "conv2"], "outc": ["conv"],
          **{f"down_{i}": ["conv1", "conv2"] for i in range(L - 1)},
          **{f"up_{j}": ["upconv", "conv1", "conv2"] for j in range(L - 1)}}
+# the float convs whose epilogue is a conv_epilogue call, by graph
+EPILOGUES = {"float": lambda block, conv: block != "outc", "int8": lambda block, conv: (
+    (block, conv) == ("inc", "conv1") or conv == "upconv")}
+N_EPILOGUES = {"float": 2 * (2 * L - 1) + (L - 1), "int8": 1 + (L - 1)}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -129,12 +136,15 @@ def test_serving_call_span_tree(served, kind, entry):
     assert [(spans[i].name, spans[i].site) for i in blocks] == [("unet.block", b) for b in BLOCKS]
     for b in blocks:
         convs = _children(spans, b)
+        block = spans[b].site
         assert [(spans[i].name, spans[i].site) for i in convs] == [
-            ("unet.conv", c) for c in CONVS[spans[b].site]]
+            span for c in CONVS[block]
+            for span in [("unet.conv", c)] + [("unet.epilogue", c)] * EPILOGUES[kind](block, c)]
         assert all(not _children(spans, i) for i in convs)
     n_convs = sum(s.name == "unet.conv" for s in spans)
-    assert n_convs == 2 * (2 * L - 1) + (L - 1) + 1
-    assert len(spans) == 1 + 3 + len(BLOCKS) + n_convs
+    n_epilogues = sum(s.name == "unet.epilogue" for s in spans)
+    assert n_convs == 2 * (2 * L - 1) + (L - 1) + 1 and n_epilogues == N_EPILOGUES[kind]
+    assert len(spans) == 1 + 3 + len(BLOCKS) + n_convs + n_epilogues
     for s in spans[1:]:
         p = spans[s.parent]
         assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
@@ -188,7 +198,7 @@ def test_trace_writes_spans_on_the_files_clock(served, tmp_path):
     with open(log_dir / name) as f:
         events = json.load(f)["traceEvents"]
     marked = [e for e in events if e.get("cat") == "span"]
-    assert len(marked) == len(outer) == 1 + 3 + len(BLOCKS) + 5 * L - 2
+    assert len(marked) == len(outer) == 1 + 3 + len(BLOCKS) + 5 * L - 2 + N_EPILOGUES["float"]
     assert {e["tid"] for e in marked} == {profiling.SPAN_TRACK}
     assert any(e.get("ph") == "M" and e.get("tid") == profiling.SPAN_TRACK for e in events)
     spans = [(e["name"].split(" ")[0], e["ts"], e["ts"] + e["dur"]) for e in marked]
