@@ -17,6 +17,13 @@ contract three ways:
 The PyTorch port's copy of ``gelslim_depth_tpu.config``: the same fields,
 the same JSON and the same .py format, so either package reads what the
 other writes. ``unet_config()`` returns the port's ``UNetConfig``.
+
+The port serves a second architecture, a dense-prediction transformer
+(``models/dpt.py``), where ``model_type`` is ``"dpt"``: its widths are the
+one field the JAX package lacks, ``dpt`` (a ``DPTConfig``, or a dict of its
+fields; None for the U-Net, the default), and ``dpt_config()`` returns them
+with the input size filled in. The JAX package reads the port's files and
+drops the field.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import json
 import os
 from typing import List, Optional, Tuple
 
+from gelslim_depth_tpu_torch.models.dpt import DPTConfig
 from gelslim_depth_tpu_torch.models.unet import UNetConfig
 
 
@@ -68,6 +76,8 @@ class GelslimConfig:
     model_type: str = "unet"
     activation_func: str = "relu"
     kernel_size: int = 3
+    # the transformer's widths where model_type is "dpt" (the port only)
+    dpt: Optional[DPTConfig] = None
 
     # normalization (:38-43)
     image_normalization_method: str = "0_255_to_0_1"
@@ -83,6 +93,10 @@ class GelslimConfig:
     real_train_objects: List[str] = dataclasses.field(default_factory=list)
     real_validation_objects: List[str] = dataclasses.field(default_factory=list)
     real_test_objects: List[str] = dataclasses.field(default_factory=list)
+
+    def __post_init__(self):
+        if isinstance(self.dpt, dict):
+            self.dpt = DPTConfig.from_dict(self.dpt)
 
     # --- aliases the reference uses inconsistently -------------------------
     # complete_prediction.py reads `tactile_normalization_*` while the
@@ -107,6 +121,12 @@ class GelslimConfig:
             upconv_stride=self.upconv_stride,
             activation=self.activation_func,
         )
+
+    def dpt_config(self) -> DPTConfig:
+        """The transformer's configuration, its input the network input size."""
+        if self.model_type != "dpt" or self.dpt is None:
+            raise ValueError(f"model_type {self.model_type!r} with dpt={self.dpt!r} is not a DPT configuration")
+        return dataclasses.replace(self.dpt, image_size=tuple(self.input_tactile_image_size))
 
     # --- JSON artifact ------------------------------------------------------
     def to_json(self) -> str:
@@ -163,7 +183,7 @@ class GelslimConfig:
             ]),
             ("#CNN OPTIONS AND PARAMETERS", [
                 "input_tactile_image_size", "CNN_dimensions", "upconv_stride",
-                "maxpool_size", "model_type", "activation_func", "kernel_size",
+                "maxpool_size", "model_type", "activation_func", "kernel_size", "dpt",
             ]),
             ("#NORMALIZATION PARAMETERS", [
                 "image_normalization_method", "image_normalization_parameters",
@@ -180,7 +200,9 @@ class GelslimConfig:
             lines.append(header)
             for n in names:
                 v = getattr(self, n)
-                if isinstance(v, tuple):
+                if isinstance(v, DPTConfig):
+                    v = dataclasses.asdict(v)
+                elif isinstance(v, tuple):
                     v = tuple(v)
                 elif n == "CNN_dimensions":
                     v = list(v)

@@ -33,9 +33,13 @@ import torch
 
 from gelslim_depth_tpu_torch import ops
 from gelslim_depth_tpu_torch.config import GelslimConfig
+from gelslim_depth_tpu_torch.models.dpt import DPT
 from gelslim_depth_tpu_torch.models.unet import UNet
 from gelslim_depth_tpu_torch.utils.device import resolve_device
 from gelslim_depth_tpu_torch.utils.profiling import CALL, span
+
+
+MODEL_TYPES = ("unet", "dpt")
 
 
 def _preprocess(config: GelslimConfig, images: torch.Tensor) -> torch.Tensor:
@@ -201,6 +205,12 @@ class Predictor(_Serving):
     arrays); the predictor keeps it as given, and ``quantize`` calibrates a
     float32 U-Net built from it whatever the compute dtype. device
     defaults to ``cuda`` and raises when no CUDA device is present.
+
+    The network is the configuration's ``model_type``: ``"unet"``, or
+    ``"dpt"``, the dense-prediction transformer (``models/dpt.py``) at
+    ``config.dpt_config()``, whose state dict has Depth Anything V2's
+    layout. It serves through the same front end, ``serve.unet`` span and
+    post; ``quantize`` and the U-Net checkpoint loaders refuse it.
     """
 
     def __init__(
@@ -211,16 +221,20 @@ class Predictor(_Serving):
         compute_dtype: torch.dtype = torch.float32,
         device=None,
     ):
+        if config.model_type not in MODEL_TYPES:
+            raise ValueError(f"model_type {config.model_type!r}: expected one of {MODEL_TYPES}")
         self.config = config
-        self.unet_cfg = config.unet_config()
+        self.unet_cfg = config.unet_config() if config.model_type == "unet" else None
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.state_dict = {k: torch.as_tensor(v) for k, v in state_dict.items()}
-        self.net = self._unet().to_compute_dtype(compute_dtype)
+        self.net = self._network().to_compute_dtype(compute_dtype)
 
-    def _unet(self) -> UNet:
+    def _network(self):
+        """The configuration's network in float32 on the predictor's
+        device, the state dict loaded."""
         with torch.device(self.device):
-            net = UNet(self.unet_cfg)
+            net = DPT(self.config.dpt_config()) if self.unet_cfg is None else UNet(self.unet_cfg)
         net.load_state_dict(self.state_dict)
         return net
 
@@ -231,6 +245,7 @@ class Predictor(_Serving):
     def from_torch_checkpoint(cls, path: str, config: GelslimConfig, **kw) -> "Predictor":
         from gelslim_depth_tpu_torch.models.torch_import import load_torch_checkpoint
 
+        _require_unet(config, "from_torch_checkpoint")
         return cls(config, load_torch_checkpoint(path, config.unet_config()), **kw)
 
     @classmethod
@@ -239,6 +254,7 @@ class Predictor(_Serving):
         from gelslim_depth_tpu_torch.train.checkpoint import load_checkpoint
 
         config, params, stats = load_checkpoint(ckpt_dir, name)
+        _require_unet(config, "from_checkpoint")
         return cls(config, params_from_jax(params, stats, config.unet_config()), **kw)
 
     def quantize(
@@ -255,13 +271,19 @@ class Predictor(_Serving):
         calibration batch, before deploying."""
         from gelslim_depth_tpu_torch.models.quantize import quantize_unet
 
+        _require_unet(self.config, "quantize")
         # a float32 UNet of its own: the quantized model moves between
         # devices without taking this predictor's net along
         q = quantize_unet(
-            self._unet(), _calibration_inputs(self.config, calib_frames, base_frame, self.device),
+            self._network(), _calibration_inputs(self.config, calib_frames, base_frame, self.device),
             percentile=percentile, quantize_upconvs=quantize_upconvs,
         )
         return QuantizedPredictor(self.config, q, compute_dtype=self.compute_dtype, device=self.device)
+
+
+def _require_unet(config: GelslimConfig, what: str) -> None:
+    if config.model_type != "unet":
+        raise ValueError(f"{what} takes a U-Net configuration, not model_type {config.model_type!r}")
 
 
 @torch.inference_mode()

@@ -1,3 +1,4 @@
+from gelslim_depth_tpu_torch.models.dpt import DPT, DPTConfig, dpt_state_shapes
 from gelslim_depth_tpu_torch.models.unet import UNet, UNetConfig, init_unet, reinit_weights_normal, unet_apply
 from gelslim_depth_tpu_torch.models.torch_import import (
     load_torch_checkpoint,
@@ -9,6 +10,9 @@ from gelslim_depth_tpu_torch.models.torch_import import (
 from gelslim_depth_tpu_torch.models.quantize import QuantizedUNet, quantize_unet, unet_apply_int8
 
 __all__ = [
+    "DPT",
+    "DPTConfig",
+    "dpt_state_shapes",
     "QuantizedUNet",
     "UNet",
     "UNetConfig",
