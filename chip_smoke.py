@@ -656,9 +656,9 @@ def measure_conv_sites(peaks, g):
 def epilogue_sites(n_img: int):
     """The flagship's conv_epilogue launches at n_img finger images, as the
     serving graphs make them: (graph, site, y's (N, C, H, W), y's layout,
-    'bn' or 'bias', int8 output). The int8 graph's float convs (inc/conv1,
-    the upconvs) run channels-last and quantize for the next int8 conv; the
-    bf16 graph's run NCHW and store bf16."""
+    'bn' or 'bias', int8 output). Both graphs run channels-last: the int8
+    graph's float convs (inc/conv1, the upconvs) quantize for the next int8
+    conv; the bf16 graph's store bf16. NCHW is the float32 graph's layout."""
     cfg = GelslimConfig()
     ucfg = cfg.unet_config()
     dims, L = ucfg.layer_dimensions, ucfg.num_levels
@@ -670,12 +670,12 @@ def epilogue_sites(n_img: int):
     sites = [("int8", "inc/conv1", (n_img, dims[0], *hw[0]), "channels_last", "bn", True)]
     sites += [("int8", f"up_{j}/upconv", (n_img, *up[j]), "channels_last", "bias", True) for j in range(L - 1)]
     for level, block in enumerate(["inc"] + [f"down_{i}" for i in range(L - 1)]):
-        sites += [("bf16", f"{block}/{c}", (n_img, dims[level], *hw[level]), "nchw", "bn", False)
+        sites += [("bf16", f"{block}/{c}", (n_img, dims[level], *hw[level]), "channels_last", "bn", False)
                   for c in ("conv1", "conv2")]
     for j in range(L - 1):
         level = L - 2 - j
-        sites += [("bf16", f"up_{j}/upconv", (n_img, *up[j]), "nchw", "bias", False)]
-        sites += [("bf16", f"up_{j}/{c}", (n_img, dims[level], *hw[level]), "nchw", "bn", False)
+        sites += [("bf16", f"up_{j}/upconv", (n_img, *up[j]), "channels_last", "bias", False)]
+        sites += [("bf16", f"up_{j}/{c}", (n_img, dims[level], *hw[level]), "channels_last", "bn", False)
                   for c in ("conv1", "conv2")]
     return sites
 
@@ -716,7 +716,7 @@ def check_conv_epilogue(g):
     Returns the largest |diff| of the finite outputs (0 when all agree)."""
     odd = [((2, 12, 9, 11), "channels_last", "bn", True, "relu"), ((3, 5, 2, 3), "nchw", "bn", False, "relu"),
            ((2, 1024, 10, 13), "nchw", "bn", True, "relu"), ((2, 64, 17, 23), "channels_last", "bn", False, "tanh"),
-           ((2, 64, 17, 23), "nchw", "bn", True, "mish")]
+           ((2, 64, 17, 23), "nchw", "bn", True, "mish"), ((2, 32, 15, 19), "nchw", "bias", False, "relu")]
     cases = [(site, shape, layout, mode, int8, "relu") for _, site, shape, layout, mode, int8 in epilogue_sites(2)]
     cases += [("extra", *c) for c in odd]
     worst = 0.0

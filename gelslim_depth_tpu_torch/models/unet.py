@@ -41,6 +41,18 @@ says, as the JAX package's ``Precision.HIGHEST`` does. bfloat16 follows
 - the upconv output gets its bfloat16 bias added in bfloat16;
 - the head conv adds its bias in bfloat16, then casts to float32.
 
+Layout (``UNet.channels_last``), by compute dtype. bfloat16 runs the eval
+forward channels-last end to end: ``to_compute_dtype`` stores the conv,
+upconv and head weights in ``torch.channels_last`` once, the input is made
+channels-last once at the entry of ``inc``, and every intermediate stays so
+(conv outputs, ``conv_epilogue``'s, which keeps its input's layout, the
+max-pools, the ``Up`` pad and concat), so cuDNN runs its NHWC kernels with
+no NCHW<->NHWC transpose around them. float32 keeps NCHW weights and runs
+in its input's layout, NCHW from every caller: with TF32 off, cuDNN's
+float32 convs transpose in either layout, and on an H100 the float32 train
+step ran slower in NHWC (105.0 against 93.4 ms; PERF.md). Either way the
+forward returns NCHW-contiguous float32 logits.
+
 Training runs ``unet_apply``, the functional counterpart of
 ``gelslim_depth_tpu.models.unet.unet_apply``: the same graph over
 reference-layout dictionaries of parameters and running statistics, in
@@ -238,7 +250,9 @@ class OutConv(nn.Module):
 
 
 class UNet(nn.Module):
-    """Eval-mode U-Net on NCHW input; returns float32 NCHW logits."""
+    """Eval-mode U-Net on NCHW input; returns NCHW-contiguous float32
+    logits. Its convs run channels-last in bfloat16 and NCHW in float32
+    (``channels_last``; the module's docstring says why)."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -267,14 +281,24 @@ class UNet(nn.Module):
 
     def to_compute_dtype(self, dtype: torch.dtype) -> "UNet":
         """Run the convs in ``dtype``: their weights and biases are stored in
-        it, so the forward casts only activations; BatchNorm stays float32."""
+        it, the weights channels-last in bfloat16 (``channels_last``), so
+        the forward casts and lays out only activations; BatchNorm stays
+        float32."""
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute dtype must be float32 or bfloat16, got {dtype}")
+        self.compute_dtype = dtype
+        weights = torch.channels_last if self.channels_last else torch.contiguous_format
         for m in self.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-                m.to(dtype)
-        self.compute_dtype = dtype
+                m.to(dtype, memory_format=weights)
         return self
+
+    @property
+    def channels_last(self) -> bool:
+        """Whether the eval forward runs channels-last: in bfloat16 it does;
+        float32 keeps NCHW weights and the input's layout (the module's
+        docstring says why)."""
+        return self.compute_dtype == torch.bfloat16
 
     def forward(self, x: torch.Tensor, probe=None) -> torch.Tensor:
         """probe(site, h), where given, is called with the input of every
@@ -287,6 +311,8 @@ class UNet(nn.Module):
 
         with full_precision(dtype):
             with span("unet.block", "inc"):
+                if self.channels_last:
+                    x = x.to(dtype, memory_format=torch.channels_last)
                 skips = [self.inc(x, dtype, at("inc"))]
             for i, down in enumerate(self.down):
                 with span("unet.block", f"down_{i}"):
@@ -296,7 +322,7 @@ class UNet(nn.Module):
                 with span("unet.block", f"up_{j}"):
                     h = up(h, skips[-2 - j], dtype, at(f"up_{j}"))
             with span("unet.block", "outc"):
-                return self.outc(h, dtype)
+                return self.outc(h, dtype).contiguous()
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,9 @@ import jax.numpy as jnp
 
 from gelslim_depth_tpu.models.torch_import import import_torch_state_dict
 from gelslim_depth_tpu.models.unet import UNetConfig as JaxUNetConfig, unet_apply
+from gelslim_depth_tpu_torch.config import GelslimConfig
+from gelslim_depth_tpu_torch.export import ExportedPredictor, export_predictor
+from gelslim_depth_tpu_torch.inference import Predictor
 from gelslim_depth_tpu_torch.models import UNet, UNetConfig, load_torch_checkpoint, params_from_jax
 from tests.torch_fixture import make_state_dict
 
@@ -140,3 +143,87 @@ def test_folded_batch_norm_follows_load_and_is_not_saved(rng):
     inv = torch.rsqrt(bn.running_var + 1e-5) * bn.weight
     torch.testing.assert_close(net.inc.bn1_scale.view(-1), inv, rtol=0, atol=0)
     torch.testing.assert_close(net.inc.bn1_shift.view(-1), bn.bias - bn.running_mean * inv, rtol=0, atol=0)
+
+
+def _layout(t: torch.Tensor) -> str:
+    if t.is_contiguous():
+        return "nchw"
+    return "channels_last" if t.is_contiguous(memory_format=torch.channels_last) else "strided"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_layout_follows_the_compute_dtype(rng, monkeypatch, dtype):
+    """bfloat16 runs channels-last end to end: every conv site's input and
+    every conv and upconv weight cuDNN gets; float32 stays NCHW. At 42x53
+    the decoder's Up blocks pad. Both return NCHW-contiguous float32 logits
+    within the bar of their dtype against the JAX graph."""
+    jcfg, params, stats, net, _ = _pair(rng)
+    net.to_compute_dtype(dtype)
+    want_layout = "channels_last" if dtype == torch.bfloat16 else "nchw"
+    seen, convs = {}, []
+    for name in ("conv2d", "conv_transpose2d"):
+        fn = getattr(F, name)
+
+        def spy(x, w, *a, _fn=fn, _name=name, **kw):
+            convs.append((_name, _layout(x), _layout(w)))
+            return _fn(x, w, *a, **kw)
+
+        monkeypatch.setattr(F, name, spy)
+    x = rng.uniform(0, 1, (2, 3, 42, 53)).astype(np.float32)
+    with torch.no_grad():
+        got = net(torch.from_numpy(x), probe=lambda site, h: seen.setdefault(site, (_layout(h), h.dtype)))
+
+    assert len(seen) == 12 and set(seen.values()) == {(want_layout, dtype)}
+    assert [c[0] for c in convs].count("conv_transpose2d") == 2 and len(convs) == 13
+    # the head's (1, 8, 1, 1) weight is both; every other weight is the layout's
+    assert {c[1:] for c in convs[:-1]} == {(want_layout, want_layout)} and convs[-1][1] == want_layout
+    assert got.dtype == torch.float32 and got.shape == (2, 1, 42, 53) and got.is_contiguous()
+    got = got.numpy()
+    y32, _ = unet_apply(jcfg, params, stats, jnp.asarray(x))
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, np.asarray(y32), rtol=1e-4, atol=1e-4)
+    else:
+        y16, _ = unet_apply(jcfg, params, stats, jnp.asarray(x), compute_dtype=jnp.bfloat16)
+        scale = np.abs(np.asarray(y32)).max() + 1e-6
+        assert np.abs(got - np.asarray(y32)).max() / scale < 0.05
+        assert np.abs(got - np.asarray(y16)).max() / scale < 0.05
+
+
+def test_bf16_channels_last_weights_keep_the_state_dict(rng, tmp_path):
+    """The bf16 net's channels-last weights are the reference's state dict:
+    its keys and shapes, the values of a fresh load cast to bfloat16. A
+    plain NCHW state dict loads into it, the weights stay channels-last and
+    the logits do not move; ``export_predictor`` serves them as the live
+    predictor does."""
+    *_, net, sd = _pair(rng)
+    fresh = UNet(net.cfg)
+    fresh.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    net.to_compute_dtype(torch.bfloat16)
+    got, ref = net.state_dict(), fresh.state_dict()
+    assert {k: v.shape for k, v in got.items()} == {k: v.shape for k, v in ref.items()}
+    convs = {f"{name}.{p}" for name, m in net.named_modules() if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))
+             for p in ("weight", "bias") if getattr(m, p) is not None}
+    assert len(convs) == 5 * 2 + 2 * 2 + 2  # DoubleConvs, upconvs with their biases, the head
+    for k, v in got.items():
+        assert v.dtype == (torch.bfloat16 if k in convs else ref[k].dtype), k
+        torch.testing.assert_close(v, ref[k].to(v.dtype), rtol=0, atol=0, msg=k)
+        assert v.ndim != 4 or v.is_contiguous(memory_format=torch.channels_last), k
+
+    x = torch.from_numpy(rng.uniform(0, 1, (2, 3, 24, 33)).astype(np.float32))
+    with torch.no_grad():
+        before = net(x)
+        net.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+        after = net(x)
+    assert all(v.is_contiguous(memory_format=torch.channels_last) for v in net.state_dict().values() if v.ndim == 4)
+    torch.testing.assert_close(after, before, rtol=0, atol=0)
+
+    cfg = GelslimConfig(CNN_dimensions=DIMS, input_tactile_image_size=(24, 33), use_difference_image=True,
+                        depth_normalization_method="min_max_to_0_-1", depth_normalization_parameters=(-1.9, 0.0))
+    pred = Predictor(cfg, sd, compute_dtype=torch.bfloat16, device="cpu")
+    frames = rng.uniform(0, 255, (2, 6, 48, 66)).astype(np.float32)
+    base = rng.uniform(0, 255, (6, 48, 66)).astype(np.float32)
+    path = export_predictor(pred, (48, 66), path=str(tmp_path / "bf16.gsx"), batch_sizes=(2,), frame_size=(48, 66))
+    served = ExportedPredictor.load(path)
+    assert served.meta["kind"] == "bf16"
+    torch.testing.assert_close(served(frames, base), pred.predict_dual_frames(frames, base, (48, 66)),
+                               rtol=1e-6, atol=1e-6)
