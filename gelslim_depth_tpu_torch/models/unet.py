@@ -1,7 +1,7 @@
-"""U-Net for tactile depth estimation, eval forward, as a PyTorch module.
-
-The counterpart of ``gelslim_depth_tpu.models.unet.unet_apply(train=False)``.
-Submodule and parameter names are the reference's state-dict keys
+"""U-Net for tactile depth estimation: one float graph, walked by the eval
+module ``UNet`` and by the functional ``unet_apply`` (train and eval), the
+counterpart of ``gelslim_depth_tpu.models.unet.unet_apply``. The modules
+only hold parameters, under the reference's state-dict keys
 (``inc.double_conv.{0,1,3,4}``, ``down.{i}.maxpool_conv.1.double_conv.*``,
 ``up.{i}.up``, ``up.{i}.conv.double_conv.*``, ``outc.conv``), so a reference
 ``.pth`` loads with ``load_state_dict``.
@@ -16,24 +16,23 @@ Reference architecture quirks kept (ref gelslim_depth/models/unet.py):
 - OutConv = 1x1 conv with bias.
 - The activation knob is honored ('relu' | 'tanh' | 'mish').
 
-Eval BatchNorm folds the running statistics into one affine
-``x * inv + (bias - mean * inv)`` with ``inv = rsqrt(var + 1e-5) * scale``.
-The fold is computed once, by ``fold_batch_norm``, which construction and
-``load_state_dict`` call; the forward only applies it.
+``_walk`` is the graph, inc -> down_i -> up_j -> outc, over weights keyed
+by those names, cast to the compute dtype and memory format where used (a
+no-op for ``UNet``'s, which ``to_compute_dtype`` stores so). Each block runs
+in a ``utils.profiling.span`` (``unet.block``), each conv call alone (with
+a halo, its exchange too) in a ``unet.conv`` span. The callers pass in what differs: the weights, the
+memory format and a DoubleConv's BatchNorm. Eval folds it into ``x * scale
++ shift``, ``scale = rsqrt(var + 1e-5) * weight`` (``UNet``'s
+``fold_batch_norm`` buffers; ``unet_apply`` folds the given statistics each
+call), and ``bn_act`` runs the affine, activation and cast as one
+``conv_epilogue`` in a ``unet.epilogue`` span, as the upconv's bias add
+runs; where autograd records, or in float64, the chain of aten ops that
+the kernel equals bit for bit. Train passes the batch-statistics
+BatchNorm. Off, a span costs a call and a ``with``.
 
-Each block of the forward and each conv launch in it runs inside a
-``utils.profiling.span`` (``unet.block``, ``unet.conv``); the conv's span
-holds the conv call alone, its casts lie in the block's. Each conv's
-epilogue (the BatchNorm affine, activation and cast of a DoubleConv conv,
-the upconv's bias add) is one ``conv_epilogue`` call in a ``unet.epilogue``
-span beside the conv's, in the block's; where autograd records (grad
-enabled and the conv's output requires grad) it stays the chain of aten
-ops that the kernel equals bit for bit. Off, a span costs a call and a
-``with``.
-
-Compute dtype (``to_compute_dtype``): float32 runs every conv in full
-float32, TF32 off for the forward whatever ``torch.backends.cudnn.allow_tf32``
-says, as the JAX package's ``Precision.HIGHEST`` does. bfloat16 follows
+Compute dtype: float32 runs every conv in full float32, TF32 off whatever
+``torch.backends.cudnn.allow_tf32`` says, as the JAX package's
+``Precision.HIGHEST`` does. bfloat16 follows the JAX package's
 ``unet_apply(compute_dtype=bfloat16)`` rounding for rounding:
 - a conv's output stays bfloat16;
 - the BN affine promotes to float32 (bf16 tensor times f32 vector), goes
@@ -41,30 +40,20 @@ says, as the JAX package's ``Precision.HIGHEST`` does. bfloat16 follows
 - the upconv output gets its bfloat16 bias added in bfloat16;
 - the head conv adds its bias in bfloat16, then casts to float32.
 
-Layout (``UNet.channels_last``), by compute dtype. bfloat16 runs the eval
-forward channels-last end to end: ``to_compute_dtype`` stores the conv,
-upconv and head weights in ``torch.channels_last`` once, the input is made
-channels-last once at the entry of ``inc``, and every intermediate stays so
-(conv outputs, ``conv_epilogue``'s, which keeps its input's layout, the
-max-pools, the ``Up`` pad and concat), so cuDNN runs its NHWC kernels with
-no NCHW<->NHWC transpose around them. float32 keeps NCHW weights and runs
-in its input's layout, NCHW from every caller: with TF32 off, cuDNN's
-float32 convs transpose in either layout, and on an H100 the float32 train
-step ran slower in NHWC (105.0 against 93.4 ms; PERF.md). Either way the
-forward returns NCHW-contiguous float32 logits.
+Layout (``memory_format``): bfloat16 eval runs channels-last end to end
+(the weights, the input made so once at the entry of ``inc``, and every
+intermediate: convs, ``conv_epilogue``, pools, pad, concat), so cuDNN runs
+its NHWC kernels with no NCHW<->NHWC transpose around them. Everything else
+keeps its input's layout, NCHW from every serving caller: with TF32 off,
+cuDNN's float32 convs transpose in either layout, and on an H100 the
+float32 train step ran slower in NHWC (105.0 against 93.4 ms; PERF.md).
 
-Training runs ``unet_apply``, the functional counterpart of
-``gelslim_depth_tpu.models.unet.unet_apply``: the same graph over
-reference-layout dictionaries of parameters and running statistics, in
-train mode (batch statistics, optionally mask-weighted, and a functional
-running-stat update) or in eval mode (the BN folded on the fly, so it
-follows parameters and statistics that change every step). Its float32
-parameters are cast to the compute dtype inside the forward, so bfloat16
-gradients land on float32 masters. ``channels_last=True`` takes and
-returns NHWC tensors, as the JAX package's does: their NCHW views are
-in ``torch.channels_last`` memory format, which cuDNN's bfloat16 convs
-read with no layout transpose (its float32 ones still transpose; PERF.md
-has the times). ``init_unet`` and
+``unet_apply`` takes reference-layout dictionaries of float32 parameters
+and running statistics, cast inside the forward, so bfloat16 gradients
+land on float32 masters; train mode normalizes with batch statistics
+(optionally mask-weighted) and returns the running ones updated. Its
+``channels_last=True`` means NHWC tensors in and out, as the JAX package's
+does: their NCHW views are channels-last in memory. ``init_unet`` and
 ``reinit_weights_normal`` make a fresh model from a ``torch.Generator``.
 """
 
@@ -80,6 +69,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from gelslim_depth_tpu_torch.ops.activation import activation_fn
 from gelslim_depth_tpu_torch.ops.kernels.conv_epilogue import conv_epilogue
 from gelslim_depth_tpu_torch.utils.profiling import span
 
@@ -102,20 +92,13 @@ class UNetConfig:
         return len(self.layer_dimensions)
 
 
-def _activation_fn(name: str):
-    if name == "relu":
-        return F.relu
-    if name == "tanh":
-        return torch.tanh
-    if name == "mish":
-        return lambda x: x * torch.tanh(F.softplus(x))
-    raise ValueError(f"Unknown activation {name!r}; expected relu|tanh|mish")
-
-
 class Activation(nn.Module):
+    """``ops.activation`` as a module, at its index of the reference's
+    DoubleConv ``nn.Sequential``."""
+
     def __init__(self, name: str):
         super().__init__()
-        self.fn = _activation_fn(name)
+        self.fn = activation_fn(name)
         self.name = name
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -148,6 +131,13 @@ def full_precision(dtype: torch.dtype):
     return _no_cudnn_tf32() if dtype == torch.float32 else contextlib.nullcontext()
 
 
+def memory_format(dtype: torch.dtype, train: bool = False) -> torch.memory_format:
+    """The float graph's memory format: channels-last end to end for
+    bfloat16 eval; otherwise ``torch.preserve_format``, the input's layout
+    (the module's docstring says why)."""
+    return torch.channels_last if dtype == torch.bfloat16 and not train else torch.preserve_format
+
+
 class DoubleConv(nn.Module):
     def __init__(self, cin: int, cout: int, k: int, activation: str):
         super().__init__()
@@ -172,31 +162,6 @@ class DoubleConv(nn.Module):
             self.register_buffer(f"bn{i}_scale", inv.view(1, -1, 1, 1), persistent=False)
             self.register_buffer(f"bn{i}_shift", shift.view(1, -1, 1, 1), persistent=False)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype, probe=None) -> torch.Tensor:
-        conv1, _, act, conv2, _, _ = self.double_conv
-        if probe is not None:
-            probe("conv1", x)
-        x = x.to(dtype)
-        with span("unet.conv", "conv1"):
-            y = F.conv2d(x, conv1.weight, padding=1)
-        y = bn_act(y, self.bn0_scale, self.bn0_shift, act, "conv1")
-        if probe is not None:
-            probe("conv2", y)
-        with span("unet.conv", "conv2"):
-            y = F.conv2d(y, conv2.weight, padding=1)
-        return bn_act(y, self.bn1_scale, self.bn1_shift, act, "conv2")
-
-
-def bn_act(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, act: Activation, site: str) -> torch.Tensor:
-    """A DoubleConv conv's folded eval BatchNorm (its (1, C, 1, 1) scale
-    and shift) and activation of the conv's output y, rounded to y's dtype:
-    one ``conv_epilogue`` in a ``unet.epilogue`` span, or the aten chain
-    where autograd records."""
-    if records_grad(y):
-        return act(y * scale + shift).to(y.dtype)
-    with span("unet.epilogue", site):
-        return conv_epilogue(y, bn_mul=scale, bn_add=shift, act=act.name)
-
 
 class Down(nn.Module):
     def __init__(self, cin: int, cout: int, cfg: UNetConfig):
@@ -205,10 +170,6 @@ class Down(nn.Module):
             nn.MaxPool2d(cfg.maxpool_size),
             DoubleConv(cin, cout, cfg.kernel_size, cfg.activation),
         )
-
-    def forward(self, x: torch.Tensor, dtype: torch.dtype, probe=None) -> torch.Tensor:
-        pool, dc = self.maxpool_conv
-        return dc(pool(x), dtype, probe)
 
 
 class Up(nn.Module):
@@ -219,40 +180,130 @@ class Up(nn.Module):
         # the reference's Up never forwards kernel_size to its DoubleConv
         self.conv = DoubleConv(cin, cout, 3, cfg.activation)
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor, dtype: torch.dtype, probe=None) -> torch.Tensor:
-        if probe is not None:
-            probe("upconv", x)
-        x = x.to(dtype)
-        with span("unet.conv", "upconv"):
-            y = F.conv_transpose2d(x, self.up.weight, stride=self.stride)
-        if records_grad(y):
-            y = y + self.up.bias.view(1, -1, 1, 1)
-        else:
-            with span("unet.epilogue", "upconv"):
-                y = conv_epilogue(y, bias=self.up.bias)
-        dy = skip.shape[2] - y.shape[2]
-        dx = skip.shape[3] - y.shape[3]
-        y = F.pad(y, [dx // 2, dx - dx // 2, dy // 2, dy - dy // 2])
-        return self.conv(torch.cat([skip.to(dtype), y], dim=1), dtype, probe)
-
 
 class OutConv(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, 1)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+
+def _fused(y: torch.Tensor) -> bool:
+    """Whether y's epilogue is one ``conv_epilogue``: not where autograd
+    records, nor in float64, which the kernel does not take."""
+    return y.dtype != torch.float64 and not records_grad(y)
+
+
+def bn_act(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, act: str, site: str) -> torch.Tensor:
+    """A DoubleConv conv's folded eval BatchNorm (its (1, C, 1, 1) scale
+    and shift) and activation of the conv's output y, rounded to y's dtype:
+    one ``conv_epilogue`` in a ``unet.epilogue`` span, or the aten chain
+    where autograd records or y is float64."""
+    if not _fused(y):
+        return activation_fn(act)(y * scale + shift).to(y.dtype)
+    with span("unet.epilogue", site):
+        return conv_epilogue(y, bn_mul=scale, bn_add=shift, act=act)
+
+
+def _eval_norm(fold, act: str):
+    """Eval BatchNorm: fold(prefix, i) is BatchNorm i's (scale, shift)."""
+    return lambda y, prefix, i, site: (bn_act(y, *fold(prefix, i), act, site), None)
+
+
+def _weight(w, key: str, dtype: torch.dtype, fmt: torch.memory_format) -> torch.Tensor:
+    return w[key].to(dtype, memory_format=fmt)
+
+
+def _conv_pad1(x, w, halo=None):
+    """The DoubleConv's conv, zero padding 1; with halo (height-sharded
+    serving) the rows above and below come from the neighbouring bands,
+    and only the width is zero-padded."""
+    if halo is None:
+        return F.conv2d(x, w, padding=1)
+    return F.conv2d(halo(x, 2), w, padding=(0, 1))
+
+
+def _double_conv(x, *, prefix, w, norm, dtype, fmt, halo, probe):
+    """(conv -> BN -> activation -> compute dtype) x 2 of the DoubleConv at
+    prefix: returns (y, what norm recorded for its two BatchNorms). Pure, so
+    recomputing it under torch.utils.checkpoint updates no statistic twice."""
+    records = []
+    for i, site in enumerate(("conv1", "conv2")):
+        if probe is not None:
+            probe(site, x)
+        weight = _weight(w, f"{prefix}.double_conv.{3 * i}.weight", dtype, fmt)
+        with span("unet.conv", site):
+            x = _conv_pad1(x, weight, halo)
+        x, record = norm(x, prefix, i, site)
         x = x.to(dtype)
-        with span("unet.conv", "conv"):
-            out = F.conv2d(x, self.conv.weight)
-        out = out + self.conv.bias.view(1, -1, 1, 1)
-        return out.float()
+        records.append(record)
+    return x, records
+
+
+def _walk(cfg: UNetConfig, w, x: torch.Tensor, dtype: torch.dtype, norm, fmt: torch.memory_format, *, probe=None,
+          halo=None, remat: bool = False):
+    """The float U-Net on NCHW x: returns (logits, float32 or float64, in
+    the graph's layout; {DoubleConv prefix: (its input's (H, W), what norm
+    recorded)}). norm(y, prefix, i, site) -> (BatchNorm i and activation of
+    y, a record); probe as ``UNet.forward`` takes it; remat
+    recomputes each DoubleConv in the backward."""
+    blocks = {}
+
+    def double_conv(h, prefix, block):
+        at = None if probe is None else (lambda conv, t: probe(f"{block}/{conv}", t))
+        fn = functools.partial(_double_conv, prefix=prefix, w=w, norm=norm, dtype=dtype, fmt=fmt, halo=halo, probe=at)
+        y, records = torch.utils.checkpoint.checkpoint(fn, h, use_reentrant=False) if remat else fn(h)
+        blocks[prefix] = (h.shape[2:], records)
+        return y
+
+    with full_precision(dtype):
+        with span("unet.block", "inc"):
+            skips = [double_conv(x.to(dtype, memory_format=fmt), "inc", "inc")]
+        for i in range(cfg.num_levels - 1):
+            with span("unet.block", f"down_{i}"):
+                h = F.max_pool2d(skips[-1], cfg.maxpool_size)
+                skips.append(double_conv(h, f"down.{i}.maxpool_conv.1", f"down_{i}"))
+        h = skips[-1]
+        for j in range(cfg.num_levels - 1):
+            block, skip = f"up_{j}", skips[-2 - j]
+            with span("unet.block", block):
+                if probe is not None:
+                    probe(f"{block}/upconv", h)
+                weight, bias = _weight(w, f"up.{j}.up.weight", dtype, fmt), w[f"up.{j}.up.bias"].to(dtype)
+                with span("unet.conv", "upconv"):
+                    y = F.conv_transpose2d(h, weight, stride=cfg.upconv_stride)
+                if _fused(y):
+                    with span("unet.epilogue", "upconv"):
+                        y = conv_epilogue(y, bias=bias)
+                else:
+                    y = y + bias.view(1, -1, 1, 1)
+                dy, dx = skip.shape[2] - y.shape[2], skip.shape[3] - y.shape[3]
+                y = F.pad(y, [dx // 2, dx - dx // 2, dy // 2, dy - dy // 2])
+                h = double_conv(torch.cat([skip, y], dim=1), f"up.{j}.conv", block)
+        with span("unet.block", "outc"):
+            weight, bias = _weight(w, "outc.conv.weight", dtype, fmt), w["outc.conv.bias"].to(dtype)
+            with span("unet.conv", "conv"):
+                out = F.conv2d(h, weight)
+            out = out + bias.view(1, -1, 1, 1)
+            return out.to(torch.promote_types(dtype, torch.float32)), blocks
+
+
+class _Leaves:
+    """A module's parameters and buffers by state-dict name, read from their
+    modules at lookup: it follows ``.to()`` and loads, and walks no tree."""
+
+    def __init__(self, root: nn.Module):
+        self._at = {f"{name}.{leaf}": (m, leaf) for name, m in root.named_modules()
+                    for leaf in (*m._parameters, *m._buffers)}
+
+    def __getitem__(self, key: str) -> torch.Tensor:
+        m, leaf = self._at[key]
+        return getattr(m, leaf)
 
 
 class UNet(nn.Module):
     """Eval-mode U-Net on NCHW input; returns NCHW-contiguous float32
-    logits. Its convs run channels-last in bfloat16 and NCHW in float32
-    (``channels_last``; the module's docstring says why)."""
+    logits. Its convs run channels-last in bfloat16 and in the input's
+    layout in float32 (``memory_format``)."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -265,6 +316,7 @@ class UNet(nn.Module):
             Up(dims[i], dims[i - 1], cfg) for i in range(len(dims) - 1, 0, -1)
         )
         self.outc = OutConv(dims[0], cfg.n_classes)
+        self._leaves = _Leaves(self)
         self.eval()
 
     def fold_batch_norm(self) -> None:
@@ -281,48 +333,25 @@ class UNet(nn.Module):
 
     def to_compute_dtype(self, dtype: torch.dtype) -> "UNet":
         """Run the convs in ``dtype``: their weights and biases are stored in
-        it, the weights channels-last in bfloat16 (``channels_last``), so
-        the forward casts and lays out only activations; BatchNorm stays
-        float32."""
+        it, the weights in the graph's memory format (``memory_format``:
+        channels-last in bfloat16, NCHW in float32), so the forward casts
+        and lays out only activations; BatchNorm stays float32."""
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute dtype must be float32 or bfloat16, got {dtype}")
         self.compute_dtype = dtype
-        weights = torch.channels_last if self.channels_last else torch.contiguous_format
+        weights = torch.channels_last if memory_format(dtype) == torch.channels_last else torch.contiguous_format
         for m in self.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                 m.to(dtype, memory_format=weights)
         return self
 
-    @property
-    def channels_last(self) -> bool:
-        """Whether the eval forward runs channels-last: in bfloat16 it does;
-        float32 keeps NCHW weights and the input's layout (the module's
-        docstring says why)."""
-        return self.compute_dtype == torch.bfloat16
-
     def forward(self, x: torch.Tensor, probe=None) -> torch.Tensor:
         """probe(site, h), where given, is called with the input of every
         conv: site is 'inc/conv1', 'down_0/conv2', 'up_1/upconv', ...; the
         int8 calibration records its activation statistics this way."""
-        dtype = self.compute_dtype
-
-        def at(block):
-            return None if probe is None else lambda conv, h: probe(f"{block}/{conv}", h)
-
-        with full_precision(dtype):
-            with span("unet.block", "inc"):
-                if self.channels_last:
-                    x = x.to(dtype, memory_format=torch.channels_last)
-                skips = [self.inc(x, dtype, at("inc"))]
-            for i, down in enumerate(self.down):
-                with span("unet.block", f"down_{i}"):
-                    skips.append(down(skips[-1], dtype, at(f"down_{i}")))
-            h = skips[-1]
-            for j, up in enumerate(self.up):
-                with span("unet.block", f"up_{j}"):
-                    h = up(h, skips[-2 - j], dtype, at(f"up_{j}"))
-            with span("unet.block", "outc"):
-                return self.outc(h, dtype).contiguous()
+        dtype, w = self.compute_dtype, self._leaves
+        norm = _eval_norm(lambda p, i: (w[f"{p}.bn{i}_scale"], w[f"{p}.bn{i}_shift"]), self.cfg.activation)
+        return _walk(self.cfg, w, x, dtype, norm, memory_format(dtype), probe=probe)[0].contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -389,18 +418,15 @@ def _c(v: torch.Tensor) -> torch.Tensor:
     return v.view(1, -1, 1, 1)
 
 
-def _batch_norm(y, prefix, i, params, stats, train, sample_weight, reduce=None, n_samples=None):
-    """BatchNorm i of a DoubleConv: returns (out, batch mean, biased batch
-    var), the statistics None in eval. Train statistics are taken in
-    float32 as mean(x^2) - mean(x)^2, mask-weighted with sample_weight
-    ((N, 1, 1, 1) of 0/1), as ``gelslim_depth_tpu.models.unet._batch_norm``
-    takes them; eval folds the running statistics on the fly. With reduce,
-    the per-channel sums of x and x^2 are summed over the ranks and divided
-    by the ranks' n_samples (valid samples in all) times the pixels."""
-    scale, bias = params[f"{prefix}.{i}.weight"], params[f"{prefix}.{i}.bias"]
-    if not train:
-        inv = torch.rsqrt(stats[f"{prefix}.{i}.running_var"] + BN_EPS) * scale
-        return y * _c(inv) + _c(bias - stats[f"{prefix}.{i}.running_mean"] * inv), None, None
+def _batch_norm(y, bn, params, sample_weight, reduce=None, n_samples=None):
+    """Train BatchNorm bn ('{prefix}.double_conv.{1|4}') of y: returns (out,
+    batch mean, biased batch var). The statistics are taken in float32 as
+    mean(x^2) - mean(x)^2, mask-weighted with sample_weight ((N, 1, 1, 1) of
+    0/1), as ``gelslim_depth_tpu.models.unet._batch_norm`` takes them. With
+    reduce, the per-channel sums of x and x^2 are summed over the ranks and
+    divided by the ranks' n_samples (valid samples in all) times the
+    pixels."""
+    scale, bias = params[f"{bn}.weight"], params[f"{bn}.bias"]
     yf = y.to(torch.promote_types(y.dtype, torch.float32))  # bf16 -> f32; f64 stays
     if reduce is not None:
         yw = yf if sample_weight is None else yf * sample_weight
@@ -419,47 +445,6 @@ def _batch_norm(y, prefix, i, params, stats, train, sample_weight, reduce=None, 
     return (yf - _c(m)) * _c(torch.rsqrt(v + BN_EPS)) * _c(scale) + _c(bias), m, v
 
 
-def _conv_pad1(x, w, halo=None):
-    """The DoubleConv's conv, zero padding 1; with halo (height-sharded
-    serving) the rows above and below come from the neighbouring bands,
-    and only the width is zero-padded."""
-    if halo is None:
-        return F.conv2d(x, w, padding=1)
-    return F.conv2d(halo(x, 2), w, padding=(0, 1))
-
-
-def _double_conv(x, prefix, *, params, stats, act, train, dtype, sample_weight, reduce=None, n_samples=None,
-                 halo=None):
-    """(conv -> BN -> activation) x 2 as a pure function: returns (y, the
-    block's new running statistics | None). It mutates nothing, so
-    recomputing it under torch.utils.checkpoint updates no statistic twice."""
-    y = _conv_pad1(x.to(dtype), params[f"{prefix}.0.weight"].to(dtype), halo)
-    y, m1, v1 = _batch_norm(y, prefix, 1, params, stats, train, sample_weight, reduce, n_samples)
-    y = act(y).to(dtype)
-    y = _conv_pad1(y, params[f"{prefix}.3.weight"].to(dtype), halo)
-    y, m2, v2 = _batch_norm(y, prefix, 4, params, stats, train, sample_weight, reduce, n_samples)
-    y = act(y).to(dtype)
-    if not train:
-        return y, None
-    # the running var takes the unbiased estimate; n counts the block
-    # input's pixels, as the JAX package counts them
-    if reduce is not None:
-        n = n_samples * (x.shape[2] * x.shape[3])
-        corr = n / torch.clamp(n - 1.0, min=1.0)
-    elif sample_weight is None:
-        n = x.shape[0] * x.shape[2] * x.shape[3]
-        corr = n / max(n - 1, 1)
-    else:
-        n = sample_weight.sum() * (x.shape[2] * x.shape[3])
-        corr = n / torch.clamp(n - 1.0, min=1.0)
-    updates = {}
-    for i, m, v in ((1, m1, v1), (4, m2, v2)):
-        mean, var = f"{prefix}.{i}.running_mean", f"{prefix}.{i}.running_var"
-        updates[mean] = (1 - BN_MOMENTUM) * stats[mean] + BN_MOMENTUM * m.detach()
-        updates[var] = (1 - BN_MOMENTUM) * stats[var] + BN_MOMENTUM * v.detach() * corr
-    return y, updates
-
-
 def unet_apply(
     cfg: UNetConfig,
     params: Params,
@@ -476,10 +461,11 @@ def unet_apply(
 ) -> Tuple[torch.Tensor, BatchStats]:
     """Run the U-Net on NCHW x over reference-layout dictionaries: params
     (conv kernels and biases, BN weight and bias) and batch_stats (BN
-    running mean and var). Returns (float32 NCHW logits, new batch_stats);
-    in eval mode batch_stats comes back as given. compute_dtype float64
-    runs the whole graph in float64 (float64 logits): the exact reference
-    that a float32 step's gradients are held to.
+    running mean and var). Returns (float32 logits, new batch_stats); in
+    eval mode, ``UNet``'s graph on the same weights, batch_stats comes back
+    as given. compute_dtype float64 runs the whole graph in float64
+    (float64 logits): the exact reference that a float32 step's gradients
+    are held to.
 
     train=True normalizes with batch statistics and returns the running
     statistics updated with momentum 0.1; sample_mask ((N,) bool) excludes
@@ -506,39 +492,40 @@ def unet_apply(
     transposed convs need no halo on the bands of ``spatial_band_plan``."""
     if channels_last:
         x = x.permute(0, 3, 1, 2)
-    sample_weight = None
-    if train and sample_mask is not None:
-        sample_weight = sample_mask.to(torch.float32).view(-1, 1, 1, 1)
-    n_samples = None
-    if train and reduce is not None:
-        count = torch.tensor(float(x.shape[0]), device=x.device) if sample_weight is None else sample_weight.sum()
-        n_samples = reduce(count.reshape(1).to(torch.promote_types(x.dtype, torch.float32)))[0]
     dtype = compute_dtype
-    dc = functools.partial(_double_conv, params=params, stats=batch_stats, act=_activation_fn(cfg.activation),
-                           train=train, dtype=dtype, sample_weight=sample_weight,
-                           reduce=reduce if train else None, n_samples=n_samples, halo=halo)
-    new_stats = dict(batch_stats) if train else batch_stats
+    if not train:
+        def fold(prefix, i):  # DoubleConv.fold_batch_norm's expression
+            bn = f"{prefix}.double_conv.{3 * i + 1}"
+            inv = torch.rsqrt(batch_stats[f"{bn}.running_var"] + BN_EPS) * params[f"{bn}.weight"]
+            return _c(inv), _c(params[f"{bn}.bias"] - batch_stats[f"{bn}.running_mean"] * inv)
 
-    def run_dc(h, prefix):
-        y, updates = torch.utils.checkpoint.checkpoint(dc, h, prefix, use_reentrant=False) if remat else dc(h, prefix)
-        if train:
-            new_stats.update(updates)
-        return y
+        out, _ = _walk(cfg, params, x, dtype, _eval_norm(fold, cfg.activation), memory_format(dtype), halo=halo,
+                       remat=remat)
+        return (out.permute(0, 2, 3, 1) if channels_last else out), batch_stats
 
-    with full_precision(dtype):
-        skips = [run_dc(x, "inc.double_conv")]
-        for i in range(cfg.num_levels - 1):
-            h = F.max_pool2d(skips[-1], cfg.maxpool_size)
-            skips.append(run_dc(h, f"down.{i}.maxpool_conv.1.double_conv"))
-        h = skips[-1]
-        for j in range(cfg.num_levels - 1):
-            skip = skips[-2 - j]
-            y = F.conv_transpose2d(h.to(dtype), params[f"up.{j}.up.weight"].to(dtype), stride=cfg.upconv_stride)
-            y = y.to(dtype) + _c(params[f"up.{j}.up.bias"].to(dtype))
-            dy, dx = skip.shape[2] - y.shape[2], skip.shape[3] - y.shape[3]
-            y = F.pad(y, [dx // 2, dx - dx // 2, dy // 2, dy - dy // 2])
-            h = run_dc(torch.cat([skip.to(dtype), y], dim=1), f"up.{j}.conv.double_conv")
-        out = F.conv2d(h.to(dtype), params["outc.conv.weight"].to(dtype))
-        out = out + _c(params["outc.conv.bias"].to(out.dtype))
-    out = out.to(torch.promote_types(out.dtype, torch.float32))
+    sample_weight = n_samples = None
+    count = x.shape[0]
+    if sample_mask is not None:
+        sample_weight = sample_mask.to(torch.float32).view(-1, 1, 1, 1)
+        count = sample_weight.sum()
+    if reduce is not None:
+        count = torch.tensor(float(count), device=x.device) if sample_weight is None else count
+        count = n_samples = reduce(count.reshape(1).to(torch.promote_types(x.dtype, torch.float32)))[0]
+    act = activation_fn(cfg.activation)
+
+    def norm(y, prefix, i, site):
+        y, m, v = _batch_norm(y, f"{prefix}.double_conv.{3 * i + 1}", params, sample_weight, reduce, n_samples)
+        return act(y), (m, v)
+
+    out, blocks = _walk(cfg, params, x, dtype, norm, memory_format(dtype, train=True), halo=halo, remat=remat)
+    new_stats = dict(batch_stats)
+    for prefix, (hw, moments) in blocks.items():
+        # the running var takes the unbiased estimate; n counts the block
+        # input's pixels, as the JAX package counts them
+        n = count * (hw[0] * hw[1])
+        corr = n / torch.clamp(n - 1.0, min=1.0) if torch.is_tensor(n) else n / max(n - 1, 1)
+        for i, (m, v) in zip((1, 4), moments):
+            mean, var = f"{prefix}.double_conv.{i}.running_mean", f"{prefix}.double_conv.{i}.running_var"
+            new_stats[mean] = (1 - BN_MOMENTUM) * batch_stats[mean] + BN_MOMENTUM * m.detach()
+            new_stats[var] = (1 - BN_MOMENTUM) * batch_stats[var] + BN_MOMENTUM * v.detach() * corr
     return (out.permute(0, 2, 3, 1) if channels_last else out), new_stats

@@ -33,6 +33,7 @@ from typing import Optional
 
 import torch
 
+from gelslim_depth_tpu_torch.ops.activation import activation_fn
 from gelslim_depth_tpu_torch.ops.kernels.conv_int8 import ACTIVATIONS, quant_act
 
 
@@ -160,14 +161,12 @@ def conv_epilogue_reference(y, *, bias=None, bn_mul=None, bn_add=None, act="none
     the U-Net's chain of ops: an upconv's ``y + bias``, or a DoubleConv's
     ``act(y * bn_mul + bn_add)`` cast to y's dtype, then ``quant_act`` of
     the NHWC result where ``q_scale`` is given."""
-    from gelslim_depth_tpu_torch.models.unet import Activation
-
     _check(y, bias, bn_mul, bn_add, act, q_scale)
     c = (1, -1, 1, 1)
     if bias is not None:
         v = y + bias.view(c)
     else:
-        v = Activation(act)(y * bn_mul.view(c) + bn_add.view(c)).to(y.dtype)
+        v = activation_fn(act)(y * bn_mul.view(c) + bn_add.view(c)).to(y.dtype)
     if q_scale is None:
         return v
     return quant_act(v.permute(0, 2, 3, 1).contiguous(), q_scale)

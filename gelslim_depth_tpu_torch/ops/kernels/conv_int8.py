@@ -30,6 +30,8 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from gelslim_depth_tpu_torch.ops.activation import activation_fn
+
 ACTIVATIONS = ("none", "relu", "tanh", "mish")  # the kernel's act codes, in order
 PATHS = ("bytes", "wgmma")  # the kernel's mainloops, by the code it reports
 
@@ -259,8 +261,6 @@ def conv2d_int8_reference(qx, w, *, pad, scale, epilogue: Epilogue = Epilogue(),
     """Plain PyTorch composition of the same function (the kernel's twin):
     pad + concat, the conv, the epilogue, then each int8 output quantized
     from the rounded value by ``quant_act``."""
-    from gelslim_depth_tpu_torch.models.unet import Activation
-
     _check(qx, w, pad, scale, epilogue, qx2, offset)
     if qx2 is not None:
         qx = torch.cat([qx, place(qx2, qx.shape[1:3], offset)], dim=-1)
@@ -270,7 +270,7 @@ def conv2d_int8_reference(qx, w, *, pad, scale, epilogue: Epilogue = Epilogue(),
     if epilogue.bn_mul is not None:
         y = y * epilogue.bn_mul + epilogue.bn_add
     if epilogue.act != "none":
-        y = Activation(epilogue.act)(y)
+        y = activation_fn(epilogue.act)(y)
     y = y.to(epilogue.out_dtype)
     s = epilogue.shuffle
     if s > 1:

@@ -2,6 +2,7 @@
 package, and it never runs on the CPU unless asked to."""
 
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -200,3 +201,35 @@ def test_no_quiet_cpu_fallback(monkeypatch, tmp_path):
             Trainer(cfg, ds, ds, ds, output_dir=str(tmp_path / "t"), **kw)
     tr = Trainer(cfg, ds, ds, ds, output_dir=str(tmp_path / "t"), device="cpu", log_fn=lambda m: None)
     assert all(v.device.type == "cpu" for v in tr.state.tensors().values())
+
+
+# command modules under ops/ that drive the kernels through the models;
+# nothing in the library imports them
+OPS_ENTRY_POINTS = ("kernels/tune_conv_int8.py", "kernels/tune_preprocess.py")
+
+
+def test_ops_imports_no_higher_layer():
+    """The library modules under ``ops/`` import nothing of the layers
+    built on them (models, inference, train, parallel), at the top or
+    inside a function; read from their source, not imported."""
+    root = os.path.join(REPO, "gelslim_depth_tpu_torch", "ops")
+    higher = {("gelslim_depth_tpu_torch", layer) for layer in ("models", "inference", "train", "parallel")}
+    found, scanned = [], []
+    for path in sorted(glob.glob(os.path.join(root, "**", "*.py"), recursive=True)):
+        rel = os.path.relpath(path, root)
+        if rel in OPS_ENTRY_POINTS:
+            continue
+        scanned.append(rel)
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module] + [f"{node.module}.{a.name}" for a in node.names]
+            else:
+                continue
+            found += [(rel, n) for n in names if tuple(n.split(".")[:2]) in higher]
+    assert all(os.path.exists(os.path.join(root, e)) for e in OPS_ENTRY_POINTS)
+    assert {"activation.py", "kernels/conv_epilogue.py", "kernels/conv_int8.py"} <= set(scanned)
+    assert found == []

@@ -11,7 +11,11 @@ followed, where its epilogue is a ``conv_epilogue`` call, by that call's
 ``unet.epilogue`` span (every float conv but the head: all of them in the
 float graph, ``inc/conv1`` and the upconvs in the int8 graph).
 Span times share ``torch.profiler``'s clock, so each conv's aten event
-lies inside its conv's span once both are on one time base."""
+lies inside its conv's span once both are on one time base.
+
+The float graph is one walk: ``UNet``, ``unet_apply(train=False)`` and the
+data-parallel predictor record the same spans and return the same logits,
+and a halo of zero rows equals the convs' own padding."""
 
 import importlib.util
 import json
@@ -23,6 +27,8 @@ import torch
 
 from gelslim_depth_tpu_torch.config import GelslimConfig
 from gelslim_depth_tpu_torch.inference import Predictor
+from gelslim_depth_tpu_torch.models.unet import UNet, UNetConfig, split_state_dict, unet_apply
+from gelslim_depth_tpu_torch.parallel.mesh import make_dp_predict, make_mesh
 from gelslim_depth_tpu_torch.utils import profiling
 from tests.torch_port_helpers import torch_threads
 
@@ -207,3 +213,73 @@ def test_trace_writes_spans_on_the_files_clock(served, tmp_path):
     eps = 2e-3  # the file's microseconds carry three decimals
     for e in convs:
         assert _inside(e["ts"] + eps, e["ts"] + e["dur"] - eps, spans, "unet.conv"), e
+
+
+def _one_graph_case(dtype):
+    """Shared weights and input: the eval module in dtype, the
+    reference-layout (params, stats) it was loaded from, and x (2, 3, 20,
+    27), whose pools leave the decoder an odd size to pad."""
+    rng = np.random.RandomState(20)
+    sd = {k: torch.from_numpy(v) for k, v in _fixture.make_state_dict(rng, DIMS).items()}
+    net = UNet(UNetConfig(layer_dimensions=DIMS))
+    net.load_state_dict(sd)
+    p, s = split_state_dict(sd)
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, 3, 20, 27)).astype(np.float32))
+    return net.to_compute_dtype(dtype), p, s, x
+
+
+def _recorded(fn):
+    with torch.no_grad(), profiling.recording() as spans:
+        out = fn()
+    return out, [(s.name, s.site) for s in spans]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_float_eval_path_walks_one_graph(dtype):
+    """``UNet``, ``unet_apply(train=False)`` and a one-rank
+    ``make_dp_predict`` record the same spans on the same weights, one
+    ``unet.epilogue`` a DoubleConv conv and an upconv each, and return the
+    same logits bit for bit."""
+    net, p, s, x = _one_graph_case(dtype)
+    predict = make_dp_predict(net.cfg, make_mesh(device="cpu"), compute_dtype=dtype)
+    want, want_spans = _recorded(lambda: net(x))
+    for fn in (lambda: unet_apply(net.cfg, p, s, x, compute_dtype=dtype)[0], lambda: predict(p, s, x)):
+        got, got_spans = _recorded(fn)
+        assert got_spans == want_spans
+        assert torch.equal(got, want)
+    assert want_spans.count(("unet.block", "inc")) == 1 and len(want_spans) == len(BLOCKS) + 5 * L - 2 + 12
+    assert sum(name == "unet.epilogue" for name, _ in want_spans) == N_EPILOGUES["float"] == 12
+
+
+def test_the_flagship_graph_launches_22_epilogues():
+    """At the flagship's five levels, on the meta device: 2 epilogues in
+    each of the 9 DoubleConvs and one at each of the 4 upconvs, from the
+    module and from ``unet_apply`` alike."""
+    cfg = UNetConfig()
+    with torch.device("meta"):
+        net = UNet(cfg).to_compute_dtype(torch.bfloat16)
+        p, s = split_state_dict(UNet(cfg).state_dict())
+        x = torch.empty((1, 3, 160, 213))
+    _, want = _recorded(lambda: net(x))
+    _, got = _recorded(lambda: unet_apply(cfg, p, s, x, compute_dtype=torch.bfloat16))
+    assert got == want
+    assert sum(name == "unet.epilogue" for name, _ in want) == 2 * 9 + 4 == 22
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_a_zero_halo_equals_no_halo(dtype):
+    """A halo of one zero row above and one below (an image's edges) before
+    each 3x3 conv gives the logits and epilogues of the convs' own zero
+    padding."""
+    net, p, s, x = _one_graph_case(dtype)
+    calls = []
+
+    def halo(t, dim):
+        calls.append(dim)
+        return torch.nn.functional.pad(t, (0, 0, 1, 1))
+
+    want, want_spans = _recorded(lambda: unet_apply(net.cfg, p, s, x, compute_dtype=dtype)[0])
+    got, got_spans = _recorded(lambda: unet_apply(net.cfg, p, s, x, compute_dtype=dtype, halo=halo)[0])
+    assert calls == [2] * 2 * (2 * L - 1)
+    assert got_spans == want_spans
+    assert torch.equal(got, want)
