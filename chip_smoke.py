@@ -8,7 +8,10 @@ checkout (one nvcc each, all at once), holds each against its plain
 PyTorch twin on the card, drives the main paths and checks what comes out:
 flagship dual-frame serving through ``Predictor`` (seeded random weights),
 then int8 serving through ``Predictor.quantize`` -> ``QuantizedPredictor``,
-then bakes a seeded synthetic training set from 320x427 frames. It times
+then the transformer: the DPT head's bilinear_resize at its five sites
+against aten's F.interpolate and a DPT serving call at Depth Anything V2
+vitl's widths that launches it five times; then bakes a seeded synthetic
+training set from 320x427 frames. It times
 the kernels, the U-Nets and the train steps by their device time in a
 torch.profiler trace, and whole calls by the host clock. Then the serving
 surface: ``entry()``, the ``StreamingEngine`` on the bf16 and int8
@@ -96,6 +99,8 @@ from gelslim_depth_tpu_torch.ops.kernels import (
     fused_preprocess_dual,
     fused_preprocess_dual_reference,
 )
+from gelslim_depth_tpu_torch.models import dpt as dpt_module
+from gelslim_depth_tpu_torch.ops.kernels.bilinear_resize import bilinear_resize, bilinear_resize_reference
 from gelslim_depth_tpu_torch.ops.kernels.conv_epilogue import conv_epilogue, conv_epilogue_reference
 from gelslim_depth_tpu_torch.utils.profiling import TRACE_ATTEMPTS, busy_us, device_events, device_ms
 
@@ -109,6 +114,15 @@ CONV_FAST_PATH = conv_int8.PATHS[-1]  # the mainloop every flagship launch must 
 EPILOGUE_SOURCE = "gelslim_depth_tpu_torch/csrc/conv_epilogue.cu"
 EPILOGUE_REPLACES = "gelslim_depth_tpu/models/unet.py:197"
 EPILOGUES_PER_CALL = {"bf16": 22, "int8": 5}  # conv_epilogue launches a flagship serving call
+RESIZE_SOURCE = "gelslim_depth_tpu_torch/csrc/bilinear_resize.cu"
+RESIZE_REPLACES = "none: F.interpolate at gelslim_depth_tpu_torch/models/dpt.py's five bilinear resizes (no DPT in JAX)"
+DPT_CONFIG = "benchmark/configs/dpt_vitl14_bf16.json"  # Depth Anything V2 vitl at 308x420
+# the DPT head's bilinear resizes at that configuration: (site, C, input
+# (h, w), output (h, w)); each launches bilinear_resize once a serving call
+RESIZE_SITES = (("refinenet4", 256, (11, 15), (22, 30)), ("refinenet3", 256, (22, 30), (44, 60)),
+                ("refinenet2", 256, (44, 60), (88, 120)), ("refinenet1", 256, (88, 120), (176, 240)),
+                ("output", 128, (176, 240), (308, 420)))
+DPT_EPILOGUES_PER_CALL = 8  # conv_epilogue launches a DPT serving call
 MULT = [1 / 255.0] * 3  # 0_255_to_0_1
 ADD = [0.0] * 3
 
@@ -765,6 +779,126 @@ def measure_conv_epilogue_sites(peaks, g):
     return out
 
 
+def resize_input(g, n_img, c, hw, dtype=torch.bfloat16):
+    """A channels-last map of the site's shape, normal at scale 3."""
+    x = torch.randn((n_img, c, *hw), generator=g, device="cuda") * 3
+    return x.to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+def check_bilinear_resize(g):
+    """bilinear_resize vs its twin, aten's F.interpolate(align_corners=True)
+    on the card, at the DPT head's five sites at 2 finger images and at
+    C = 12 (no 16-B vectors), in bfloat16 and float32: bit for bit, one
+    launch each. Returns the largest |kernel - twin| it read (0 when they
+    agree)."""
+    cases = [(site, c, hw, out) for site, c, hw, out in RESIZE_SITES] + [("c12", 12, (9, 11), (20, 31))]
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for site, c, hw, out in cases:
+            x = resize_input(g, 2, c, hw, dtype)
+            err = max(err, compare_bilinear_resize(x, out, f"{site} (2, {c}, {hw[0]}, {hw[1]}) -> {out} "
+                                                         f"{str(dtype)[6:]}"))
+    return err
+
+
+def compare_bilinear_resize(x, out, tag, chunk=16):
+    """One bilinear_resize launch on x against its twin on the same x: one
+    launch, the twin's layout and dtype, and bit for bit (the count of
+    elements that differ and the largest |difference|, read in float32
+    over `chunk` images at a time). Returns that largest |difference|."""
+    before = bilinear_resize.launches
+    got, want = bilinear_resize(x, out), bilinear_resize_reference(x, out)
+    torch.cuda.synchronize()
+    differ, err = 0, 0.0
+    for s in range(0, x.shape[0], chunk):
+        a, b = got[s:s + chunk], want[s:s + chunk]
+        differ += int((a != b).sum())
+        err = max(err, float((a.float() - b.float()).abs().max()))
+    print(f"bilinear_resize vs plain: {tag}: {differ} of {want.numel()} elements differ, max |diff| {err}",
+          flush=True)
+    check(bilinear_resize.launches == before + 1, f"bilinear_resize {tag}: launched "
+          f"{bilinear_resize.launches - before} times, want 1")
+    check(got.stride() == want.stride() and got.dtype == want.dtype, f"bilinear_resize {tag}: layout")
+    check(differ == 0, f"bilinear_resize disagrees with plain ({tag}): {differ} elements, max |diff| {err}")
+    return err
+
+
+def measure_bilinear_resize_sites(peaks, g):
+    """bilinear_resize at the DPT head's five sites at 64 dual frames (128
+    finger images, bf16): kernel device ms against the byte bound (the
+    input read once, the output written once, at the card's bandwidth) and
+    against its twin, which is the library call aten's F.interpolate (its
+    channels-last kernel, upsample_bilinear2d_nhwc). Before timing, each
+    site's launch is held to the twin on the same input, bit for bit.
+    Returns the sums, the largest |kernel - twin| (max_abs_err) and each
+    site."""
+    bw = peaks[0]
+    rec = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "launches": 0, "max_abs_err": 0.0,
+           "sites": {}}
+    for site, c, hw, out in RESIZE_SITES:
+        x = resize_input(g, 128, c, hw)
+        err = compare_bilinear_resize(x, out, f"{site} N=128 (128, {c}, {hw[0]}, {hw[1]}) -> {out} bfloat16")
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        torch.cuda.empty_cache()
+        bound = 1e3 * 2 * 128 * c * (hw[0] * hw[1] + out[0] * out[1]) / bw
+        kernel_ms = kernel_device_ms(lambda: bilinear_resize(x, out), bound, f"bilinear_resize {site}")
+        library_ms = device_ms(lambda: bilinear_resize_reference(x, out), calls=5)
+        rec["ms"] += kernel_ms
+        rec["plain_ms"] += library_ms
+        rec["library_ms"] += library_ms
+        rec["bound_ms"] += bound
+        rec["launches"] += 1
+        rec["sites"][site] = {"shape": [128, c, *hw], "size": list(out), "ms": kernel_ms, "library_ms": library_ms,
+                              "bound_ms": bound, "max_abs_err": err}
+        print(f"bilinear_resize {site} N=128 (128, {c}, {hw[0]}, {hw[1]}) -> {out} bf16: kernel {kernel_ms:.4f} ms, "
+              f"F.interpolate {library_ms:.4f} ms, bound {bound:.4f} ms ({100 * bound / kernel_ms:.1f}% of it)",
+              flush=True)
+        del x
+        torch.cuda.empty_cache()
+    print(f"bilinear_resize, the DPT head's {rec['launches']} sites at N=128: kernel {rec['ms']:.4f} ms, "
+          f"F.interpolate {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({100 * rec['bound_ms'] / rec['ms']:.1f}% of it)", flush=True)
+    return rec
+
+
+def drive_dpt(g):
+    """The transformer's serving path: a bf16 Predictor of the DPT at Depth
+    Anything V2 vitl's widths (seeded random weights) on 2 dual frames.
+    Each call launches bilinear_resize at the head's five sites and
+    conv_epilogue 8 times, and serves the depth that the same predictor
+    serves with the twin at the resizes. Returns (record, launches)."""
+    with open(DPT_CONFIG) as f:
+        cfg = GelslimConfig.from_json(f.read())
+    torch.manual_seed(0)
+    sd = dpt_module.DPT(cfg.dpt_config()).state_dict()
+    pred = Predictor(cfg, sd, compute_dtype=torch.bfloat16)
+    frames, base = rand((2, 6, *FRAME), g), rand((6, *FRAME), g)
+    reset_launches()
+    got = pred.predict_dual_frames(frames, base, FRAME)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check((launches["bilinear_resize"], launches["conv_epilogue"]) == (len(RESIZE_SITES), DPT_EPILOGUES_PER_CALL),
+          f"a DPT serving call launched {launches}, want {len(RESIZE_SITES)} bilinear_resize and "
+          f"{DPT_EPILOGUES_PER_CALL} conv_epilogue")
+    kernel_fn = dpt_module.bilinear_resize
+    dpt_module.bilinear_resize = bilinear_resize_reference
+    try:
+        want = pred.predict_dual_frames(frames, base, FRAME)
+    finally:
+        dpt_module.bilinear_resize = kernel_fn
+    torch.cuda.synchronize()
+    check(bilinear_resize.launches == len(RESIZE_SITES), "the twin's route launched bilinear_resize")
+    check(tuple(got.shape) == (2, 2, *FRAME) and bool(torch.isfinite(got).all()), "DPT serving: bad depth")
+    differ = int((got != want).sum())
+    print(f"DPT serving (vitl, bf16, 2 dual frames): {launches['bilinear_resize']} bilinear_resize and "
+          f"{launches['conv_epilogue']} conv_epilogue launches a call; depth vs the twin's route: {differ} of "
+          f"{want.numel()} values differ", flush=True)
+    check(differ == 0, f"DPT serving: the kernel's depth differs from the twin's at {differ} values")
+    del pred, sd
+    torch.cuda.empty_cache()
+    return {"launches_per_call": launches, "depth_values_differing": differ}, launches
+
+
 def measure(pred16, qpred, frames64, base, peaks):
     """Kernel, plain, library and bound times of the preprocess kernel, each
     the device time of one call; bf16 and int8 end-to-end call times and
@@ -831,11 +965,13 @@ def reset_launches() -> None:
     conv2d_int8.launches = 0
     conv2d_int8.launches_by_path = dict.fromkeys(conv_int8.PATHS, 0)
     conv_epilogue.launches = 0
+    bilinear_resize.launches = 0
 
 
 def read_launches() -> dict:
     return {"fused_preprocess_dual": fused_preprocess_dual.launches, "conv2d_int8": conv2d_int8.launches,
-            "conv2d_int8_by_path": dict(conv2d_int8.launches_by_path), "conv_epilogue": conv_epilogue.launches}
+            "conv2d_int8_by_path": dict(conv2d_int8.launches_by_path), "conv_epilogue": conv_epilogue.launches,
+            "bilinear_resize": bilinear_resize.launches}
 
 
 def drive_entry():
@@ -2118,7 +2254,7 @@ def main() -> None:
     peaks = card_peaks(kind)
 
     t0 = time.perf_counter()
-    names = ("fused_preprocess_dual", "conv2d_int8", "conv_epilogue")
+    names = ("fused_preprocess_dual", "conv2d_int8", "conv_epilogue", "bilinear_resize")
     build.build_all(names)
     for name in names:
         build.load_library(name)
@@ -2128,6 +2264,7 @@ def main() -> None:
     max_err = check_kernel(g)
     conv_err = check_conv_int8(g)
     epilogue_err = check_conv_epilogue(g)
+    resize_err = check_bilinear_resize(g)
 
     cfg = flagship_config()
     sd = seeded_state_dict(cfg.unet_config(), seed=0)
@@ -2146,6 +2283,8 @@ def main() -> None:
     timings, e2e = measure(pred16, qpred, frames64, base, peaks)
     sites = measure_conv_sites(peaks, g)
     epilogues = measure_conv_epilogue_sites(peaks, g)
+    resizes = measure_bilinear_resize_sites(peaks, g)
+    dpt_run, dpt_launches = drive_dpt(g)
     entry_launches = drive_entry()
     engine, engine_launches = drive_engine(pred16, qpred, frames64, base, e2e)
     exported, export_launches = drive_export(cfg, sd, pred16, qpred, frames64, base)
@@ -2171,7 +2310,7 @@ def main() -> None:
     # every path's launches, each counted from 0 just before the path ran
     path_launches = {"main": launches, "int8": int8_launches, "entry": entry_launches,
                      "engine": engine_launches, "export": export_launches, "meshgen": meshgen_launches,
-                     "bilinear": bilinear_launches, **parallel_launches, **train_launches,
+                     "bilinear": bilinear_launches, "dpt": dpt_launches, **parallel_launches, **train_launches,
                      "cli_data_prep": cli_launches, **convergence_launches}
     t = timings[64]
     sums = {k: sum(v[k] for v in sites.values()) for k in ("ms", "plain_ms", "bound_ms", "library_ms", "bytes_ms", "ops_ms")}
@@ -2214,9 +2353,26 @@ def main() -> None:
         "bound_ms": sum(v["bound_ms"] for v in epilogues.values()),
         "bound_by": "bytes",
         "graphs": {k: {kk: vv for kk, vv in v.items() if kk != "sites"} for k, v in epilogues.items()},
+    }, {
+        # times summed over the DPT head's five sites at N=128 finger images;
+        # plain: the twin, which is the library call F.interpolate
+        "name": "bilinear_resize",
+        "route": "cuda",
+        "source": RESIZE_SOURCE,
+        "replaces": RESIZE_REPLACES,
+        "launches": sum(v.get("bilinear_resize", 0) for v in path_launches.values()),
+        # read at N=2 in both dtypes and at N=128 in bf16, the cell's shapes
+        "max_abs_err": max(resize_err, resizes["max_abs_err"]),
+        "ms": resizes["ms"],
+        "plain_ms": resizes["plain_ms"],
+        "bound_ms": resizes["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": resizes["library_ms"],
+        "sites": resizes["sites"],
     }]
     print(json.dumps({"end_to_end": e2e, "kernel_N1": timings[1], "conv2d_int8_sites_N64": sites,
-                      "conv_epilogue_N64": epilogues, "launches_by_path": path_launches}))
+                      "conv_epilogue_N64": epilogues, "bilinear_resize_N64": resizes, "dpt": dpt_run,
+                      "launches_by_path": path_launches}))
     print(json.dumps({"engine": engine, "export": exported, "bilinear": bilinear}))
     print(json.dumps({"training": training}))
     print(json.dumps({"meshgen": meshgen, "cli_data_prep": cli_run}))

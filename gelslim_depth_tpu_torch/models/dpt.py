@@ -37,7 +37,9 @@ feeds a ReLU (the first conv of each residual unit, the
 ``head_features``-wide output conv) runs without its bias, and
 ``conv_epilogue``'s BatchNorm form finishes it (scale 1, shift the bias
 in float32, ``relu``), rounded once. The head runs channels-last: the
-tokens already are. float32 runs with TF32 off.
+tokens already are. Its five bilinear resizes (``align_corners=True``)
+are ``bilinear_resize``, one hand-written kernel a resize on the card,
+bit for bit the library's ``F.interpolate``. float32 runs with TF32 off.
 
 Spans (``utils.profiling.span``): ``dpt.encoder`` (patch embedding, the
 blocks, the hooks' norm), a ``dpt.block`` a block (site its index)
@@ -60,6 +62,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
+from gelslim_depth_tpu_torch.ops.kernels.bilinear_resize import bilinear_resize
 from gelslim_depth_tpu_torch.ops.kernels.conv_epilogue import conv_epilogue
 from gelslim_depth_tpu_torch.utils.profiling import span
 
@@ -267,7 +270,7 @@ class FeatureFusionBlock(nn.Module):
     def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor], size: Tuple[int, int]) -> torch.Tensor:
         if skip is not None:
             x = x + self.resConfUnit1(skip)
-        x = F.interpolate(self.resConfUnit2(x), size=size, mode="bilinear", align_corners=True)
+        x = bilinear_resize(self.resConfUnit2(x), size)
         return F.conv2d(x, self.out_conv.weight, self.out_conv.bias)
 
 
@@ -336,7 +339,7 @@ class DPTHead(nn.Module):
             p = self.cfg.patch_size
             gh, gw = self.cfg.grid
             y = F.conv2d(path, s.output_conv1.weight, s.output_conv1.bias, padding=1)
-            y = F.interpolate(y, size=(gh * p, gw * p), mode="bilinear", align_corners=True)
+            y = bilinear_resize(y, (gh * p, gw * p))
             y = _bias_relu(F.conv2d(y, s.output_conv2[0].weight, padding=1), s.output_scale, s.output_shift)
             y = F.conv2d(y, s.output_conv2[2].weight, s.output_conv2[2].bias)
             return y.float()

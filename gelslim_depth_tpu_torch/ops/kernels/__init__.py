@@ -8,6 +8,9 @@
   into the float convs' epilogues: gelslim_depth_tpu/models/unet.py:197,
   :229 and :275, quantize.py:156); the module shares the function's name, so it
   is imported from the module, not from here
+- bilinear_resize.bilinear_resize  (replaces no TPU kernel: the DPT head's
+  bilinear resizes with align_corners=True, in place of aten's; imported
+  from its module, as conv_epilogue is)
 """
 
 from gelslim_depth_tpu_torch.ops.kernels.conv_int8 import (

@@ -8,14 +8,17 @@ serve the same depth bit for bit. Run it once per tree on one card:
     python3 scripts/served_depth_hash.py . 2718281828 1618033988
 
 Prints one line a cell and seed: ``depth <cell> seed=<n> sha256=<hex>``.
-The tree's own ``benchmark/`` makes the inputs. Needs a CUDA device.
+The tree's own ``benchmark/`` makes the inputs: the U-Net cells' as
+``benchmark/serving.py::serving_inputs`` does, the transformer cell's
+(``dpt_vitl14_batch64``) as ``benchmark/loops/closed_dpt.py::run`` does.
+Needs a CUDA device.
 """
 
 import hashlib
 import os
 import sys
 
-CELLS = ("int8_batch64", "bf16_batch64")
+CELLS = ("int8_batch64", "bf16_batch64", "dpt_vitl14_batch64")
 
 
 def main() -> None:
@@ -25,16 +28,26 @@ def main() -> None:
     os.chdir(tree)
     import torch
 
-    from benchmark import harness, serving
+    from benchmark import harness, inputs, serving
+    from benchmark.loops import closed_dpt
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+
+    def dpt_inputs(cell, seed, device):
+        n, pool = cell.traffic["dual_frames_per_call"], cell.traffic["pool"]
+        frames, base, _ = inputs.session(inputs.generator(device, seed, inputs.FRAMES), n * pool,
+                                         tuple(cell.config["frame_size"]), device)
+        sd = closed_dpt.weights(cell.config, inputs.generator(device, seed, inputs.WEIGHTS), device)
+        return [frames[i * n:(i + 1) * n].clone() for i in range(pool)], base, None, sd
+
     for name in CELLS:
         for seed in seeds:
             cell = harness.find_cell(name)
-            pool_inputs, base, calib, sd = serving.serving_inputs(cell, seed, dev)
+            make = dpt_inputs if cell.config.get("model_type") == "dpt" else serving.serving_inputs
+            pool_inputs, base, calib, sd = make(cell, seed, dev)
             pred = serving.serving_system(cell, sd, calib, base, dev)
             frame = tuple(cell.config["frame_size"])
             h = hashlib.sha256()
