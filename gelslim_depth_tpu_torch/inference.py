@@ -111,6 +111,22 @@ def dual_frames_to_fingers(
     return fingers.reshape(2 * n, 3, h, w)
 
 
+def is_temporal(config: GelslimConfig) -> bool:
+    """Whether the configuration's network attends across frames: a DPT
+    with the temporal head, which takes a call's frames as clips."""
+    return config.model_type == "dpt" and config.dpt is not None and config.dpt.temporal
+
+
+def require_per_frame(config: GelslimConfig, what: str) -> None:
+    """Raise where ``what`` cannot serve the configuration because its
+    network needs each finger's frames in clips."""
+    if is_temporal(config):
+        raise ValueError(
+            f"{what} does not take a temporal configuration: its DPT head (Video Depth Anything) attends "
+            f"across clips of num_frames={config.dpt.num_frames} frames of each finger, which {what} does not form"
+        )
+
+
 def fused_predict_dual(
     config: GelslimConfig,
     net: Callable,
@@ -129,23 +145,32 @@ def fused_predict_dual(
     ``fused_preprocess_dual``; None takes it when the frames are on CUDA.
     The kernel hard-wires the area resize and a shared (6, H, W) base, so
     another interp_method or a batched (N, 6, H, W) base takes the composed
-    path."""
+    path.
+
+    A temporal network (``is_temporal``) gets the N dual frames as clips:
+    both front ends hand it the left finger's N frames, then the right's,
+    each in time order, as ``streams=2``."""
     n = frames.shape[0]
     if use_kernel is None:
         use_kernel = frames.is_cuda
     use_kernel = use_kernel and config.interp_method == "area"
     kernel = use_kernel and (base_frame is None or base_frame.ndim == 3)
+    clips = is_temporal(config)
     with span("serve.front_end"):
         if kernel:
             x = kernel_front_end(config, frames, base_frame, config.input_tactile_image_size)
         else:
-            x = _preprocess(config, dual_frames_to_fingers(config, frames, base_frame))
+            fingers = dual_frames_to_fingers(config, frames, base_frame)
+            if clips:  # the kernel's layout: each finger's frames together, in time order
+                fingers = fingers.view(n, 2, *fingers.shape[1:]).transpose(0, 1).reshape(fingers.shape)
+            x = _preprocess(config, fingers)
     with span("serve.unet"):
-        y = net(x)
+        # a temporal network takes the two fingers as two streams of frames
+        y = net(x, streams=2) if clips else net(x)
     with span("serve.post"):
         depth = _postprocess(config, y, output_size)
-        if kernel:
-            # kernel layout: rows [0, n) = left finger, [n, 2n) = right
+        if kernel or clips:
+            # rows [0, n) = left finger, [n, 2n) = right
             return torch.stack([depth[:n, 0], depth[n:, 0]], dim=1)
         return depth.reshape(n, 2, *output_size)
 
@@ -167,7 +192,9 @@ class _Serving:
 
     @torch.inference_mode()
     def predict_depth_from_RGB(self, images, output_size: Tuple[int, int]) -> torch.Tensor:
-        """(N, 3, H, W) [0,255] images -> (N, 1, *output_size) mm depth."""
+        """(N, 3, H, W) [0,255] images -> (N, 1, *output_size) mm depth; a
+        temporal network takes the N images as one finger's frames in time
+        order."""
         with span(CALL):
             return fused_predict(self.config, self._net(), self._tensor(images), tuple(output_size))
 
@@ -210,7 +237,9 @@ class Predictor(_Serving):
     ``"dpt"``, the dense-prediction transformer (``models/dpt.py``) at
     ``config.dpt_config()``, whose state dict has Depth Anything V2's
     layout. It serves through the same front end, ``serve.unet`` span and
-    post; ``quantize`` and the U-Net checkpoint loaders refuse it.
+    post; ``quantize`` and the U-Net checkpoint loaders refuse it. With
+    the temporal head (``DPTConfig.num_frames``, Video Depth Anything) a
+    call's frames are served as clips (``fused_predict_dual``).
     """
 
     def __init__(
@@ -271,6 +300,7 @@ class Predictor(_Serving):
         calibration batch, before deploying."""
         from gelslim_depth_tpu_torch.models.quantize import quantize_unet
 
+        require_per_frame(self.config, "quantize")
         _require_unet(self.config, "quantize")
         # a float32 UNet of its own: the quantized model moves between
         # devices without taking this predictor's net along
@@ -472,6 +502,9 @@ class StreamingEngine:
             raise ValueError("microbatch must be >= 1")
         if max_dispatches < 1:
             raise ValueError("max_dispatches must be >= 1")
+        config = getattr(predictor, "config", None)
+        if config is not None:
+            require_per_frame(config, "StreamingEngine")
         self.predictor = predictor
         device = getattr(predictor, "device", None)
         self._cuda = device if device is not None and torch.device(device).type == "cuda" else None

@@ -41,13 +41,62 @@ tokens already are. Its five bilinear resizes (``align_corners=True``)
 are ``bilinear_resize``, one hand-written kernel a resize on the card,
 bit for bit the library's ``F.interpolate``. float32 runs with TF32 off.
 
+Temporal head (``DPTConfig.num_frames`` > 0): Video Depth Anything's
+``DPTHeadTemporal`` (https://github.com/DepthAnything/Video-Depth-Anything:
+``video_depth_anything/dpt_temporal.py``, ``motion_module/motion_module.py``).
+Four ``TemporalModule``s, each attending across the frames of a clip at
+every spatial position, sit on ``layer_3`` and ``layer_4`` after their
+projection and resize (before ``layer{3,4}_rn``) and on ``path_4`` and
+``path_3`` after ``refinenet4`` and ``refinenet3``; everything else runs
+per frame. On a map ``x`` of C channels over a clip of t <= num_frames
+frames, with ``temporal_heads`` heads of C / heads:
+
+1. ``h = GroupNorm(32 groups, eps 1e-6, affine)(x)``, per frame;
+2. the tokens of the clip's frames, ``h = proj_in(h)`` (C -> C, bias);
+3. two attention blocks: ``n = LayerNorm_j(h)`` (eps 1e-5), plus the
+   sinusoidal table ``pe[s, 2i] = sin(s 10000^(-2i/C))``, ``pe[s, 2i+1] =
+   cos(...)`` at the frame's place s in the clip; q, k, v projections
+   without bias; softmax attention over the clip's frames at each
+   position, scale (C / heads)^-1/2; ``h += to_out(o)`` (bias);
+4. ``h += W2(a * gelu_erf(g))``, ``[a, g] = W1(LayerNorm_ff(h))``, W1 C ->
+   8C and W2 4C -> C, both with bias (GEGLU);
+5. ``x + proj_out(h)`` (C -> C, bias).
+
+Clips: ``DPT.forward(x, streams)`` takes x's rows as ``streams`` runs of
+equal length, one after another (a finger's frames each, in time order),
+and cuts each run into consecutive clips of ``num_frames``; a last,
+shorter clip attends over its own frames with the table's rows 0...t-1.
+The module computes in clip, position, frame order: its GroupNorm writes
+the frames' tokens regrouped so that each position's frames of a clip lie
+together, the blocks' LayerNorms, linears and SDPA then run on that
+layout with no copy, and the last residual add reads ``proj_out``'s
+output back into the map's own order. State-dict names are the
+published module's (``motion_modules.{i}.temporal_transformer.{norm,
+proj_in, transformer_blocks.0.attention_blocks.{j}.{to_q, to_k, to_v,
+to_out.0, pos_encoder.pe}, transformer_blocks.0.{norms.{j}, ff.net.0.proj,
+ff.net.2, ff_norm}, proj_out}``) under this model's ``depth_head``, where
+the published model names its head ``head``; ``pos_encoder.pe``, the
+(1, num_frames, C) table, is taken to be a buffer that the published
+checkpoint holds (not confirmed against a checkpoint). Departures: the
+published sliding-window inference (windows overlapping by 10 frames,
+keyframes, scale-and-shift alignment between windows) is left out, and
+back-to-back clips are served; the published ``proj_out`` is
+zero-initialised, here it is a weight like any other (the weights come
+from the caller); the DPT's departures above.
+
 Spans (``utils.profiling.span``): ``dpt.encoder`` (patch embedding, the
 blocks, the hooks' norm), a ``dpt.block`` a block (site its index)
 holding ``dpt.attention`` (the head split, the SDPA call, the merge) and
 ``dpt.mlp`` (fc1, GELU, fc2); ``dpt.head`` holding ``dpt.reassemble``
 (projections, resizes, ``layer{i}_rn``), ``dpt.fusion`` (sites
-``refinenet4`` ... ``refinenet1``) and ``dpt.output``.
-``DPT.attention_calls`` counts SDPA calls by the backend pinned.
+``refinenet4`` ... ``refinenet1``) and ``dpt.output``; with the temporal
+head a ``dpt.temporal`` a module (sites ``layer3`` and ``layer4`` inside
+``dpt.reassemble``, ``path4`` and ``path3`` after their fusion block),
+holding a ``dpt.temporal_attention`` an attention block (site its index:
+the head split, the SDPA call, the merge) and ``dpt.temporal_ff`` (the
+feed-forward and its residual add). ``DPT.attention_calls`` counts the
+encoder's SDPA calls by the backend pinned, ``DPT.temporal_attention_calls``
+the temporal modules' (``temporal_attention_backend``).
 """
 
 from __future__ import annotations
@@ -55,6 +104,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -83,12 +133,21 @@ class DPTConfig:
     features: int = 256
     out_channels: Tuple[int, ...] = (256, 512, 1024, 1024)
     head_features: int = 32
+    # Video Depth Anything's temporal head: clips of num_frames frames
+    # (0, the per-frame DPT), temporal_heads heads a temporal module
+    num_frames: int = 0
+    temporal_heads: int = 8
     image_size: Optional[Tuple[int, int]] = None
 
     @classmethod
     def from_dict(cls, d: dict) -> "DPTConfig":
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: tuple(v) if isinstance(v, list) else v for k, v in d.items() if k in names})
+
+    @property
+    def temporal(self) -> bool:
+        """Whether the head attends across the frames of a clip."""
+        return self.num_frames > 0
 
     @property
     def grid(self) -> Tuple[int, int]:
@@ -111,6 +170,18 @@ def attention_backend(device: torch.device, dtype: torch.dtype):
     if device.type != "cuda":
         return SDPBackend.FLASH_ATTENTION
     return SDPBackend.EFFICIENT_ATTENTION if dtype == torch.float32 else SDPBackend.CUDNN_ATTENTION
+
+
+def temporal_attention_backend(device: torch.device, dtype: torch.dtype, head_dim: int):
+    """The SDPA backend pinned for a temporal module: ``attention_backend``'s,
+    but the memory-efficient kernel for bfloat16 heads narrower than 64 on
+    CUDA (on an H100 at the video cell's shapes, sequences of 32 frames in
+    8 heads: heads of 32 over 10,560 sequences 0.84 ms against cuDNN's
+    1.35, over 2,640 0.22 against 0.35; heads of 128, cuDNN 0.46 against
+    0.55)."""
+    if device.type == "cuda" and dtype == torch.bfloat16 and head_dim < 64:
+        return SDPBackend.EFFICIENT_ATTENTION
+    return attention_backend(device, dtype)
 
 
 @contextlib.contextmanager
@@ -293,6 +364,162 @@ class Scratch(nn.Module):
         _epilogue_vectors(self, "output", self.output_conv2[0])
 
 
+# ---------------------------------------------------------------------------
+# temporal modules (Video Depth Anything)
+# ---------------------------------------------------------------------------
+
+GROUP_NORM_GROUPS = 32
+GROUP_NORM_EPS = 1e-6
+TEMPORAL_LAYER_NORM_EPS = 1e-5
+
+
+def sinusoid_table(length: int, dim: int) -> torch.Tensor:
+    """(length, dim) float32: ``[s, 2i] = sin(s 10000^(-2i/dim))``,
+    ``[s, 2i+1] = cos(...)``."""
+    s = torch.arange(length, dtype=torch.float32).unsqueeze(1)
+    freq = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32) * (-math.log(10000.0) / dim))
+    table = torch.zeros(length, dim)
+    table[:, 0::2] = torch.sin(s * freq)
+    table[:, 1::2] = torch.cos(s * freq)
+    return table
+
+
+class PositionalEncoding(nn.Module):
+    def __init__(self, dim: int, max_len: int):
+        super().__init__()
+        self.register_buffer("pe", sinusoid_table(max_len, dim).unsqueeze(0))
+
+
+class TemporalAttention(nn.Module):
+    def __init__(self, dim: int, heads: int, max_len: int):
+        super().__init__()
+        self.heads = heads
+        self.to_q = nn.Linear(dim, dim, bias=False)
+        self.to_k = nn.Linear(dim, dim, bias=False)
+        self.to_v = nn.Linear(dim, dim, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(dim, dim), nn.Identity()])  # [1]: the published dropout
+        self.pos_encoder = PositionalEncoding(dim, max_len)
+
+    def forward(self, n: torch.Tensor, backend, site: str) -> torch.Tensor:
+        """to_out(attention over the frames) of n, (sequences, t, C): a
+        position's frames of one clip a sequence, in time order."""
+        s, t, c = n.shape
+        n = n + self.pos_encoder.pe[0, :t]
+        q, k, v = (F.linear(n, proj.weight) for proj in (self.to_q, self.to_k, self.to_v))
+        with span("dpt.temporal_attention", site):
+            q, k, v = (a.view(s, t, self.heads, c // self.heads).transpose(1, 2) for a in (q, k, v))
+            o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(s, t, c)
+        DPT.temporal_attention_calls[backend.name] += 1
+        return F.linear(o, self.to_out[0].weight, self.to_out[0].bias)
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, 2 * inner)
+
+
+class FeedForward(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.net = nn.ModuleList([GEGLU(dim, 4 * dim), nn.Identity(), nn.Linear(4 * dim, dim)])  # [1]: dropout
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        proj = self.net[0].proj
+        a, g = F.linear(x, proj.weight, proj.bias).chunk(2, dim=-1)
+        return F.linear(a * F.gelu(g), self.net[2].weight, self.net[2].bias)
+
+
+class TemporalTransformerBlock(nn.Module):
+    def __init__(self, dim: int, heads: int, max_len: int):
+        super().__init__()
+        self.attention_blocks = nn.ModuleList(TemporalAttention(dim, heads, max_len) for _ in range(2))
+        self.norms = nn.ModuleList(nn.LayerNorm(dim, eps=TEMPORAL_LAYER_NORM_EPS) for _ in range(2))
+        self.ff = FeedForward(dim)
+        self.ff_norm = nn.LayerNorm(dim, eps=TEMPORAL_LAYER_NORM_EPS)
+
+    def forward(self, h: torch.Tensor, backend) -> torch.Tensor:
+        for j, (attention, norm) in enumerate(zip(self.attention_blocks, self.norms)):
+            h = h + attention(norm(h), backend, str(j))
+        with span("dpt.temporal_ff"):
+            return h + self.ff(self.ff_norm(h))
+
+
+class TemporalTransformer3DModel(nn.Module):
+    def __init__(self, dim: int, heads: int, max_len: int):
+        super().__init__()
+        self.norm = nn.GroupNorm(GROUP_NORM_GROUPS, dim, eps=GROUP_NORM_EPS, affine=True)
+        self.proj_in = nn.Linear(dim, dim)
+        self.transformer_blocks = nn.ModuleList([TemporalTransformerBlock(dim, heads, max_len)])
+        self.proj_out = nn.Linear(dim, dim)
+
+
+def _group_norm_regrouped(x: torch.Tensor, norm: nn.GroupNorm) -> torch.Tensor:
+    """GroupNorm of x, (clips, t, positions, C), per frame: float32
+    statistics, ``x * scale + shift`` in float32 rounded to x's dtype once,
+    written (clips, positions, t, C)."""
+    n, t, p, c = x.shape
+    g = norm.num_groups
+    xg = x.view(n, t, p, g, c // g)
+    var, mean = torch.var_mean(xg.float(), dim=(2, 4), correction=0, keepdim=True)
+    scale = torch.rsqrt(var + norm.eps) * norm.weight.float().view(g, c // g)
+    shift = norm.bias.float().view(g, c // g) - mean * scale
+    out = torch.empty((n, p, t, c), dtype=x.dtype, device=x.device)
+    torch.addcmul(shift, xg, scale, out=out.view(n, p, t, g, c // g).transpose(1, 2))
+    return out
+
+
+class TemporalModule(nn.Module):
+    """One of Video Depth Anything's temporal modules (the equations in the
+    module's docstring) over maps of ``dim`` channels."""
+
+    def __init__(self, dim: int, heads: int, max_len: int):
+        super().__init__()
+        self.temporal_transformer = TemporalTransformer3DModel(dim, heads, max_len)
+
+    def forward(self, x: torch.Tensor, backend) -> torch.Tensor:
+        """x (clips, t, h, w, C), contiguous (the channels-last maps of a
+        clip's frames) -> x + proj_out(...), the same shape."""
+        tt = self.temporal_transformer
+        n, t, hh, ww, c = x.shape
+        p = hh * ww
+        h = F.linear(_group_norm_regrouped(x.view(n, t, p, c), tt.norm), tt.proj_in.weight, tt.proj_in.bias)
+        h = tt.transformer_blocks[0](h.view(n * p, t, c), backend)
+        y = F.linear(h, tt.proj_out.weight, tt.proj_out.bias).view(n, p, t, c)
+        out = torch.empty_like(x)
+        torch.add(x.view(n, t, p, c), y.transpose(1, 2), out=out.view(n, t, p, c))
+        return out
+
+
+def clip_runs(frames: int, length: int) -> List[Tuple[int, int, int]]:
+    """(start, stop, clip length) of the runs of equal clips that cut a
+    stream of ``frames`` frames into consecutive clips of ``length``: the
+    whole clips, then the shorter last one where ``length`` does not
+    divide ``frames``."""
+    whole = frames - frames % length
+    runs = [(0, whole, length)] if whole else []
+    if whole < frames:
+        runs.append((whole, frames, frames - whole))
+    return runs
+
+
+def temporal(module: TemporalModule, y: torch.Tensor, streams: int, length: int, backend) -> torch.Tensor:
+    """The module over y, (B, C, h, w) channels-last, whose rows are
+    ``streams`` runs of B / streams frames in time order, each cut into
+    clips of ``length``; returns the same layout."""
+    b, c, h, w = y.shape
+    t = y.permute(0, 2, 3, 1).contiguous().view(streams, b // streams, h, w, c)
+    runs = clip_runs(b // streams, length)
+    if len(runs) == 1:
+        out = module(t.view(-1, runs[0][2], h, w, c), backend)
+    else:
+        out = torch.empty_like(t)
+        for start, stop, clip in runs:
+            part = t[:, start:stop].reshape(-1, clip, h, w, c)
+            out[:, start:stop] = module(part, backend).view(streams, stop - start, h, w, c)
+    return out.view(b, h, w, c).permute(0, 3, 1, 2)
+
+
 class DPTHead(nn.Module):
     def __init__(self, cfg: DPTConfig):
         super().__init__()
@@ -306,11 +533,23 @@ class DPTHead(nn.Module):
             nn.Conv2d(oc[3], oc[3], 3, stride=2, padding=1),
         ])
         self.scratch = Scratch(cfg)
+        if cfg.temporal:
+            # on layer_3, layer_4 (their reassembly widths), path_4, path_3
+            widths = (oc[2], oc[3], cfg.features, cfg.features)
+            self.motion_modules = nn.ModuleList(
+                TemporalModule(c, cfg.temporal_heads, cfg.num_frames) for c in widths)
 
-    def _reassemble(self, hooks: List[torch.Tensor]) -> List[torch.Tensor]:
+    def _temporal(self, i: int, site: str, y: torch.Tensor, streams: int) -> torch.Tensor:
+        backend = temporal_attention_backend(y.device, y.dtype, y.shape[1] // self.cfg.temporal_heads)
+        with span("dpt.temporal", site), sdpa_kernel([backend]):
+            return temporal(self.motion_modules[i], y, streams, self.cfg.num_frames, backend)
+
+    def _reassemble(self, hooks: List[torch.Tensor], streams: int) -> List[torch.Tensor]:
         """Each hook's (N, T, D) tokens -> its ``layer{i}_rn`` map, (N,
         features, h, w) channels-last: the 1x1 projection as a matmul on the
-        tokens, whose (N, h, w, C) layout is channels-last NCHW."""
+        tokens, whose (N, h, w, C) layout is channels-last NCHW; with the
+        temporal head, layer_3 and layer_4 through their temporal modules
+        before ``layer{i}_rn``."""
         n = hooks[0].shape[0]
         gh, gw = self.cfg.grid
         out = []
@@ -320,17 +559,23 @@ class DPTHead(nn.Module):
                 y = F.conv_transpose2d(y, resize.weight, resize.bias, stride=resize.stride)
             elif isinstance(resize, nn.Conv2d):
                 y = F.conv2d(y, resize.weight, resize.bias, stride=2, padding=1)
+            if self.cfg.temporal and i >= 3:
+                y = self._temporal(i - 3, f"layer{i}", y, streams)
             out.append(F.conv2d(y, getattr(self.scratch, f"layer{i}_rn").weight, padding=1))
         return out
 
-    def forward(self, hooks: List[torch.Tensor]) -> torch.Tensor:
+    def forward(self, hooks: List[torch.Tensor], streams: int = 1) -> torch.Tensor:
         s = self.scratch
         with span("dpt.reassemble"):
-            l1, l2, l3, l4 = self._reassemble(hooks)
+            l1, l2, l3, l4 = self._reassemble(hooks, streams)
         with span("dpt.fusion", "refinenet4"):
             path = s.refinenet4(l4, None, l3.shape[2:])
+        if self.cfg.temporal:
+            path = self._temporal(2, "path4", path, streams)
         with span("dpt.fusion", "refinenet3"):
             path = s.refinenet3(path, l3, l2.shape[2:])
+        if self.cfg.temporal:
+            path = self._temporal(3, "path3", path, streams)
         with span("dpt.fusion", "refinenet2"):
             path = s.refinenet2(path, l2, l1.shape[2:])
         with span("dpt.fusion", "refinenet1"):
@@ -349,9 +594,13 @@ class DPT(nn.Module):
     """Eval-mode DPT on NCHW input; returns (N, 1, H, W) float32 logits,
     as ``UNet`` does. Inference only: run it without autograd recording
     (``conv_epilogue`` has no gradient). ``attention_calls`` counts the SDPA calls of every
-    forward by the backend's name (``CUDNN_ATTENTION``, ...)."""
+    forward by the backend's name (``CUDNN_ATTENTION``, ...), and
+    ``temporal_attention_calls`` the temporal modules' SDPA calls so.
+    With the temporal head, ``forward(x, streams)`` takes x's rows as
+    ``streams`` runs of frames in time order (the module's docstring)."""
 
     attention_calls: Dict[str, int] = collections.Counter()
+    temporal_attention_calls: Dict[str, int] = collections.Counter()
 
     def __init__(self, cfg: DPTConfig):
         super().__init__()
@@ -383,13 +632,15 @@ class DPT(nn.Module):
         self.compute_dtype = dtype
         return self
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, streams: int = 1) -> torch.Tensor:
+        if self.cfg.temporal and x.shape[0] % streams:
+            raise ValueError(f"{x.shape[0]} frames do not make {streams} streams of equal length")
         dtype = self.compute_dtype
         with _no_tf32(dtype):
             with span("dpt.encoder"):
                 hooks = self.pretrained(x.to(dtype))
             with span("dpt.head"):
-                return self.depth_head(hooks)
+                return self.depth_head(hooks, streams)
 
 
 def dpt_state_shapes(cfg: DPTConfig) -> Dict[str, Tuple[int, ...]]:

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Where the transformer cell's device time goes, by the program's spans:
-the cell's loop (``benchmark/loops/closed_dpt.py``) run traced for each
-seed, its slice's ``spans.SpanTrace`` printed as ``benchmark/spans.py``
-prints a U-Net cell's (device ms, launches, host ms and held idle ms a
-call, a row a span label), with the per-layer metrics, the device's busy
-share and the SDPA calls by backend; the correctness comparison is not
-run:
+"""Where a transformer cell's device time goes, by the program's spans:
+the cell's loop (``benchmark/loops/closed_dpt.py``, or ``closed_vda.py``
+for the video cell) run traced for each seed, its slice's
+``spans.SpanTrace`` printed as ``benchmark/spans.py`` prints a U-Net
+cell's (device ms, launches, host ms and held idle ms a call, a row a
+span label: the video cell's temporal modules and their attention and
+feed-forward spans by site), with the per-layer metrics, the device's
+busy share and the SDPA calls by backend, the encoder's and the temporal
+modules'; the correctness comparison is not run:
 
     python3 scripts/dpt_span_table.py --seed 11 --seed 12 --out dpt_spans.json
+    python3 scripts/dpt_span_table.py --workload vda_vitl14_clip64 --seed 11 --out vda_spans.json
 """
 
 import argparse
@@ -51,7 +54,8 @@ def main(argv=None) -> int:
                  "attributed_share": st.attributed_share(),
                  "metrics": {k: v["value"] for k, v in harness.per_layer_metrics(cell, st, kind, ROOT).items()},
                  "memory_peak_bytes": torch.cuda.max_memory_allocated(),
-                 "attention_calls": dict(DPT.attention_calls), "table": st.table()}
+                 "attention_calls": dict(DPT.attention_calls),
+                 "temporal_attention_calls": dict(DPT.temporal_attention_calls), "table": st.table()}
         runs.append(entry)
         print(json.dumps({k: v for k, v in entry.items() if k != "table"}), file=sys.stderr)
         print(spans.format_table(entry["table"]), file=sys.stderr)

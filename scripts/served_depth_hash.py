@@ -7,18 +7,20 @@ serve the same depth bit for bit. Run it once per tree on one card:
     python3 scripts/served_depth_hash.py _archive/parent 2718281828 1618033988
     python3 scripts/served_depth_hash.py . 2718281828 1618033988
 
-Prints one line a cell and seed: ``depth <cell> seed=<n> sha256=<hex>``.
-The tree's own ``benchmark/`` makes the inputs: the U-Net cells' as
+Prints one line a cell and seed: ``depth <cell> seed=<n> sha256=<hex>``,
+or ``depth <cell> absent`` where the tree's ``BENCHMARK.json`` has no such
+cell. The tree's own ``benchmark/`` makes the inputs: the U-Net cells' as
 ``benchmark/serving.py::serving_inputs`` does, the transformer cell's
-(``dpt_vitl14_batch64``) as ``benchmark/loops/closed_dpt.py::run`` does.
-Needs a CUDA device.
+(``dpt_vitl14_batch64``) as ``benchmark/loops/closed_dpt.py::run`` does,
+the video cell's (``vda_vitl14_clip64``) as
+``benchmark/loops/closed_vda.py::call_inputs`` does. Needs a CUDA device.
 """
 
 import hashlib
 import os
 import sys
 
-CELLS = ("int8_batch64", "bf16_batch64", "dpt_vitl14_batch64")
+CELLS = ("int8_batch64", "bf16_batch64", "dpt_vitl14_batch64", "vda_vitl14_clip64")
 
 
 def main() -> None:
@@ -43,10 +45,21 @@ def main() -> None:
         sd = closed_dpt.weights(cell.config, inputs.generator(device, seed, inputs.WEIGHTS), device)
         return [frames[i * n:(i + 1) * n].clone() for i in range(pool)], base, None, sd
 
+    def vda_inputs(cell, seed, device):
+        from benchmark.loops import closed_vda
+
+        pool_inputs, base, sd = closed_vda.call_inputs(cell, seed, device)
+        return pool_inputs, base, None, sd
+
+    makers = {"closed_dpt": dpt_inputs, "closed_vda": vda_inputs}
     for name in CELLS:
-        for seed in seeds:
+        try:
             cell = harness.find_cell(name)
-            make = dpt_inputs if cell.config.get("model_type") == "dpt" else serving.serving_inputs
+        except KeyError:
+            print(f"depth {name} absent", flush=True)
+            continue
+        for seed in seeds:
+            make = makers.get(cell.traffic["loop"], serving.serving_inputs)
             pool_inputs, base, calib, sd = make(cell, seed, dev)
             pred = serving.serving_system(cell, sd, calib, base, dev)
             frame = tuple(cell.config["frame_size"])
