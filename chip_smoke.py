@@ -9,8 +9,10 @@ PyTorch twin on the card, drives the main paths and checks what comes out:
 flagship dual-frame serving through ``Predictor`` (seeded random weights),
 then int8 serving through ``Predictor.quantize`` -> ``QuantizedPredictor``,
 then the transformer: the DPT head's bilinear_resize at its five sites
-against aten's F.interpolate and a DPT serving call at Depth Anything V2
-vitl's widths that launches it five times; then bakes a seeded synthetic
+against aten's F.interpolate, the encoder's residual_layer_norm at the
+cell's shape against aten's addcmul + F.layer_norm, and a DPT serving call
+at Depth Anything V2 vitl's widths that launches them five and 47 times;
+then bakes a seeded synthetic
 training set from 320x427 frames. It times
 the kernels, the U-Nets and the train steps by their device time in a
 torch.profiler trace, and whole calls by the host clock. Then the serving
@@ -102,6 +104,7 @@ from gelslim_depth_tpu_torch.ops.kernels import (
 from gelslim_depth_tpu_torch.models import dpt as dpt_module
 from gelslim_depth_tpu_torch.ops.kernels.bilinear_resize import bilinear_resize, bilinear_resize_reference
 from gelslim_depth_tpu_torch.ops.kernels.conv_epilogue import conv_epilogue, conv_epilogue_reference
+from gelslim_depth_tpu_torch.ops.kernels.residual_layer_norm import residual_layer_norm, residual_layer_norm_reference
 from gelslim_depth_tpu_torch.utils.profiling import TRACE_ATTEMPTS, busy_us, device_events, device_ms
 
 FRAME = (320, 427)
@@ -123,6 +126,12 @@ RESIZE_SITES = (("refinenet4", 256, (11, 15), (22, 30)), ("refinenet3", 256, (22
                 ("refinenet2", 256, (44, 60), (88, 120)), ("refinenet1", 256, (88, 120), (176, 240)),
                 ("output", 128, (176, 240), (308, 420)))
 DPT_EPILOGUES_PER_CALL = 8  # conv_epilogue launches a DPT serving call
+RLN_SOURCE = "gelslim_depth_tpu_torch/csrc/residual_layer_norm.cu"
+RLN_REPLACES = ("none: torch.addcmul + F.layer_norm at gelslim_depth_tpu_torch/models/dpt.py's encoder residual adds "
+                "(no transformer in JAX)")
+RLN_SHAPE = (128 * 661, 1024)  # a DPT serving call's rows: 128 finger images of 661 tokens, D 1024
+RLN_EPS = 1e-6  # DINOv2's
+RLN_PER_CALL = 47  # residual_layer_norm launches a DPT serving call: 2 x 24 blocks - 1
 MULT = [1 / 255.0] * 3  # 0_255_to_0_1
 ADD = [0.0] * 3
 
@@ -861,12 +870,58 @@ def measure_bilinear_resize_sites(peaks, g):
     return rec
 
 
+def measure_residual_layer_norm(peaks, g):
+    """residual_layer_norm at a DPT serving call's shape (128 finger images
+    of 661 tokens of 1024, bf16) against its twin, aten's addcmul +
+    F.layer_norm: one launch, x_new bit for bit, y within one bf16 ulp (the
+    ulp taken at 2^-10 at least) with at most 1 element in 1000 differing:
+    the kernel sums the LayerNorm's statistics in its own order
+    (tests/test_torch_residual_layer_norm.py::assert_y_close says why).
+    Then the kernel alone over 20 launches against its byte bound (x and
+    branch read, x_new and y written, once, at the card's bandwidth), and
+    the twin, which is the library chain, over 20. Returns the record."""
+    rows, d = RLN_SHAPE
+    x = 2 * torch.randn(RLN_SHAPE, generator=g, device="cuda") + torch.randn((rows, 1), generator=g, device="cuda")
+    branch = torch.randn(RLN_SHAPE, generator=g, device="cuda")
+    gamma, weight, bias = (torch.randn(d, generator=g, device="cuda") for _ in range(3))
+    args = tuple(t.bfloat16() for t in (x, branch, 0.1 * gamma, 1 + 0.1 * weight, 0.1 * bias))
+    del x, branch
+    before = residual_layer_norm.launches
+    x_new, y = residual_layer_norm(*args, RLN_EPS)
+    want_x, want_y = residual_layer_norm_reference(*args, RLN_EPS)
+    torch.cuda.synchronize()
+    x_differ = int((x_new != want_x).sum())
+    diff = (y.float() - want_y.float()).abs()
+    _, e = torch.frexp(torch.clamp(want_y.float().abs(), min=2.0 ** -10))
+    ulps = float((diff / torch.ldexp(torch.ones_like(diff), e - 8)).max())
+    y_differ, err = int((diff > 0).sum()), float(diff.max())
+    print(f"residual_layer_norm vs plain at ({rows}, {d}) bf16: x_new {x_differ} of {want_x.numel()} elements "
+          f"differ; y {y_differ} differ, max |diff| {err} ({ulps:.3f} bf16 ulps)", flush=True)
+    check(residual_layer_norm.launches == before + 1, f"residual_layer_norm: launched "
+          f"{residual_layer_norm.launches - before} times, want 1")
+    check(x_differ == 0, f"residual_layer_norm: x_new differs from addcmul's at {x_differ} elements")
+    check(ulps <= 1.0 and y_differ <= y.numel() // 1000,
+          f"residual_layer_norm: y {ulps:.3f} bf16 ulps off aten's LayerNorm, {y_differ} elements differ")
+    del x_new, y, want_x, want_y, diff
+    torch.cuda.empty_cache()
+    bound = 1e3 * 4 * rows * d * 2 / peaks[0]
+    kernel_ms = kernel_device_ms(lambda: residual_layer_norm(*args, RLN_EPS), bound, "residual_layer_norm")
+    plain_ms = device_ms(lambda: residual_layer_norm_reference(*args, RLN_EPS))
+    print(f"residual_layer_norm ({rows}, {d}) bf16: kernel {kernel_ms:.4f} ms, bound {bound:.4f} ms "
+          f"({100 * bound / kernel_ms:.1f}% of it), plain {plain_ms:.4f} ms, library (addcmul + F.layer_norm) "
+          f"{plain_ms:.4f} ms; {RLN_PER_CALL} a DPT serving call", flush=True)
+    torch.cuda.empty_cache()
+    return {"shape": list(RLN_SHAPE), "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": plain_ms,
+            "bound_ms": bound, "max_abs_err": err, "y_max_ulps": ulps, "y_elements_differing": y_differ}
+
+
 def drive_dpt(g):
     """The transformer's serving path: a bf16 Predictor of the DPT at Depth
     Anything V2 vitl's widths (seeded random weights) on 2 dual frames.
-    Each call launches bilinear_resize at the head's five sites and
-    conv_epilogue 8 times, and serves the depth that the same predictor
-    serves with the twin at the resizes. Returns (record, launches)."""
+    Each call launches bilinear_resize at the head's five sites,
+    conv_epilogue 8 times and residual_layer_norm 47 times, and serves the
+    depth that the same predictor serves with the twin at the resizes.
+    Returns (record, launches)."""
     with open(DPT_CONFIG) as f:
         cfg = GelslimConfig.from_json(f.read())
     torch.manual_seed(0)
@@ -877,9 +932,10 @@ def drive_dpt(g):
     got = pred.predict_dual_frames(frames, base, FRAME)
     torch.cuda.synchronize()
     launches = read_launches()
-    check((launches["bilinear_resize"], launches["conv_epilogue"]) == (len(RESIZE_SITES), DPT_EPILOGUES_PER_CALL),
-          f"a DPT serving call launched {launches}, want {len(RESIZE_SITES)} bilinear_resize and "
-          f"{DPT_EPILOGUES_PER_CALL} conv_epilogue")
+    per_call = (len(RESIZE_SITES), DPT_EPILOGUES_PER_CALL, RLN_PER_CALL)
+    check((launches["bilinear_resize"], launches["conv_epilogue"], launches["residual_layer_norm"]) == per_call,
+          f"a DPT serving call launched {launches}, want {per_call[0]} bilinear_resize, {per_call[1]} "
+          f"conv_epilogue and {per_call[2]} residual_layer_norm")
     kernel_fn = dpt_module.bilinear_resize
     dpt_module.bilinear_resize = bilinear_resize_reference
     try:
@@ -890,8 +946,9 @@ def drive_dpt(g):
     check(bilinear_resize.launches == len(RESIZE_SITES), "the twin's route launched bilinear_resize")
     check(tuple(got.shape) == (2, 2, *FRAME) and bool(torch.isfinite(got).all()), "DPT serving: bad depth")
     differ = int((got != want).sum())
-    print(f"DPT serving (vitl, bf16, 2 dual frames): {launches['bilinear_resize']} bilinear_resize and "
-          f"{launches['conv_epilogue']} conv_epilogue launches a call; depth vs the twin's route: {differ} of "
+    print(f"DPT serving (vitl, bf16, 2 dual frames): {launches['bilinear_resize']} bilinear_resize, "
+          f"{launches['conv_epilogue']} conv_epilogue and {launches['residual_layer_norm']} residual_layer_norm "
+          f"launches a call; depth vs the twin's route: {differ} of "
           f"{want.numel()} values differ", flush=True)
     check(differ == 0, f"DPT serving: the kernel's depth differs from the twin's at {differ} values")
     del pred, sd
@@ -966,12 +1023,13 @@ def reset_launches() -> None:
     conv2d_int8.launches_by_path = dict.fromkeys(conv_int8.PATHS, 0)
     conv_epilogue.launches = 0
     bilinear_resize.launches = 0
+    residual_layer_norm.launches = 0
 
 
 def read_launches() -> dict:
     return {"fused_preprocess_dual": fused_preprocess_dual.launches, "conv2d_int8": conv2d_int8.launches,
             "conv2d_int8_by_path": dict(conv2d_int8.launches_by_path), "conv_epilogue": conv_epilogue.launches,
-            "bilinear_resize": bilinear_resize.launches}
+            "bilinear_resize": bilinear_resize.launches, "residual_layer_norm": residual_layer_norm.launches}
 
 
 def drive_entry():
@@ -2254,7 +2312,7 @@ def main() -> None:
     peaks = card_peaks(kind)
 
     t0 = time.perf_counter()
-    names = ("fused_preprocess_dual", "conv2d_int8", "conv_epilogue", "bilinear_resize")
+    names = ("fused_preprocess_dual", "conv2d_int8", "conv_epilogue", "bilinear_resize", "residual_layer_norm")
     build.build_all(names)
     for name in names:
         build.load_library(name)
@@ -2284,6 +2342,7 @@ def main() -> None:
     sites = measure_conv_sites(peaks, g)
     epilogues = measure_conv_epilogue_sites(peaks, g)
     resizes = measure_bilinear_resize_sites(peaks, g)
+    residual_norms = measure_residual_layer_norm(peaks, g)
     dpt_run, dpt_launches = drive_dpt(g)
     entry_launches = drive_entry()
     engine, engine_launches = drive_engine(pred16, qpred, frames64, base, e2e)
@@ -2369,9 +2428,24 @@ def main() -> None:
         "bound_by": "bytes",
         "library_ms": resizes["library_ms"],
         "sites": resizes["sites"],
+    }, {
+        # one launch at a DPT serving call's shape; plain: the twin, which is
+        # the library chain addcmul + F.layer_norm
+        "name": "residual_layer_norm",
+        "route": "cuda",
+        "source": RLN_SOURCE,
+        "replaces": RLN_REPLACES,
+        "launches": sum(v.get("residual_layer_norm", 0) for v in path_launches.values()),
+        "max_abs_err": residual_norms["max_abs_err"],
+        "ms": residual_norms["ms"],
+        "plain_ms": residual_norms["plain_ms"],
+        "bound_ms": residual_norms["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": residual_norms["library_ms"],
     }]
     print(json.dumps({"end_to_end": e2e, "kernel_N1": timings[1], "conv2d_int8_sites_N64": sites,
-                      "conv_epilogue_N64": epilogues, "bilinear_resize_N64": resizes, "dpt": dpt_run,
+                      "conv_epilogue_N64": epilogues, "bilinear_resize_N64": resizes,
+                      "residual_layer_norm": residual_norms, "dpt": dpt_run,
                       "launches_by_path": path_launches}))
     print(json.dumps({"engine": engine, "export": exported, "bilinear": bilinear}))
     print(json.dumps({"training": training}))

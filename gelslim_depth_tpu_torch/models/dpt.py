@@ -32,8 +32,12 @@ in it; LayerNorm with float32 statistics, rounded to it; attention through
 ``F.scaled_dot_product_attention`` pinned to one fused backend
 (``attention_backend``: cuDNN's for bfloat16 on CUDA, memory-efficient
 for float32 there; never the math backend on CUDA), softmax inside it; the
-LayerScale and residual add as one ``addcmul``. A head conv whose bias
-feeds a ReLU (the first conv of each residual unit, the
+LayerScale and residual add as one ``addcmul``. Where a LayerNorm follows
+that add (each block's norm2, the next block's norm1: 2 x depth - 1 sites
+a call), the two are ``residual_layer_norm``, one hand-written kernel on
+the card that writes the sum, bit for bit ``addcmul``'s, and its
+LayerNorm (statistics summed in the kernel's own order). A head conv whose
+bias feeds a ReLU (the first conv of each residual unit, the
 ``head_features``-wide output conv) runs without its bias, and
 ``conv_epilogue``'s BatchNorm form finishes it (scale 1, shift the bias
 in float32, ``relu``), rounded once. The head runs channels-last: the
@@ -85,11 +89,12 @@ zero-initialised, here it is a weight like any other (the weights come
 from the caller); the DPT's departures above.
 
 Spans (``utils.profiling.span``): ``dpt.encoder`` (patch embedding, the
-blocks, the hooks' norm), a ``dpt.block`` a block (site its index)
-holding ``dpt.attention`` (the head split, the SDPA call, the merge) and
-``dpt.mlp`` (fc1, GELU, fc2); ``dpt.head`` holding ``dpt.reassemble``
-(projections, resizes, ``layer{i}_rn``), ``dpt.fusion`` (sites
-``refinenet4`` ... ``refinenet1``) and ``dpt.output``; with the temporal
+blocks, the hooks' norm), a ``dpt.block`` a block (site its index; its
+residual adds with the LayerNorms they feed, the next block's norm1
+among them) holding ``dpt.attention`` (the head split, the SDPA call,
+the merge) and ``dpt.mlp`` (fc1, GELU, fc2); ``dpt.head`` holding
+``dpt.reassemble`` (projections, resizes, ``layer{i}_rn``), ``dpt.fusion``
+(sites ``refinenet4`` ... ``refinenet1``) and ``dpt.output``; with the temporal
 head a ``dpt.temporal`` a module (sites ``layer3`` and ``layer4`` inside
 ``dpt.reassemble``, ``path4`` and ``path3`` after their fusion block),
 holding a ``dpt.temporal_attention`` an attention block (site its index:
@@ -114,6 +119,7 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from gelslim_depth_tpu_torch.ops.kernels.bilinear_resize import bilinear_resize
 from gelslim_depth_tpu_torch.ops.kernels.conv_epilogue import conv_epilogue
+from gelslim_depth_tpu_torch.ops.kernels.residual_layer_norm import residual_layer_norm
 from gelslim_depth_tpu_torch.utils.profiling import span
 
 
@@ -259,19 +265,35 @@ class Block(nn.Module):
         self.mlp = Mlp(cfg)
         self.ls2 = LayerScale(d)
 
-    def forward(self, x: torch.Tensor, backend) -> torch.Tensor:
-        """x + ls1(attn(norm1(x))), then + ls2(mlp(norm2(x))); x (N, T, D)."""
+    def forward(self, x: torch.Tensor, h: Optional[torch.Tensor], backend,
+                next_norm: Optional[nn.LayerNorm]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """x + ls1(attn(norm1(x))), then + ls2(mlp(norm2(x))); x (N, T, D).
+        h is norm1(x) where the block before computed it with its last
+        residual add, else None. Each residual add that a LayerNorm follows
+        runs with it as one ``residual_layer_norm``: ls1's with norm2, ls2's
+        with ``next_norm`` (the next block's norm1). Returns the new x and
+        next_norm of it, or None where next_norm is None (the last block)."""
         n, t, d = x.shape
         heads = self.attn.num_heads
-        qkv = F.linear(self.norm1(x), self.attn.qkv.weight, self.attn.qkv.bias)
+        if h is None:
+            h = self.norm1(x)
+        qkv = F.linear(h, self.attn.qkv.weight, self.attn.qkv.bias)
         with span("dpt.attention"):
             q, k, v = qkv.view(n, t, 3, heads, d // heads).permute(2, 0, 3, 1, 4).unbind(0)
             o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(n, t, d)
         DPT.attention_calls[backend.name] += 1
-        x = torch.addcmul(x, F.linear(o, self.attn.proj.weight, self.attn.proj.bias), self.ls1.gamma)
+        x, h = _residual_norm(x, F.linear(o, self.attn.proj.weight, self.attn.proj.bias), self.ls1, self.norm2)
         with span("dpt.mlp"):
-            m = self.mlp(self.norm2(x))
-        return torch.addcmul(x, m, self.ls2.gamma)
+            m = self.mlp(h)
+        if next_norm is None:
+            return torch.addcmul(x, m, self.ls2.gamma), None
+        return _residual_norm(x, m, self.ls2, next_norm)
+
+
+def _residual_norm(x: torch.Tensor, branch: torch.Tensor, scale: LayerScale,
+                   norm: nn.LayerNorm) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x + scale(branch), norm of it), one ``residual_layer_norm``."""
+    return residual_layer_norm(x, branch, scale.gamma, norm.weight, norm.bias, norm.eps)
 
 
 class DinoEncoder(nn.Module):
@@ -302,11 +324,12 @@ class DinoEncoder(nn.Module):
         t = F.linear(patches, pe.weight.flatten(1), pe.bias)
         t = torch.cat([self.cls_token.expand(n, -1, -1), t], dim=1) + self.pos_embed
         backend = attention_backend(x.device, x.dtype)
-        hooks = []
+        hooks, h = [], None
         with sdpa_kernel([backend]):
             for i, block in enumerate(self.blocks):
+                next_norm = self.blocks[i + 1].norm1 if i + 1 < len(self.blocks) else None
                 with span("dpt.block", str(i)):
-                    t = block(t, backend)
+                    t, h = block(t, h, backend, next_norm)
                 if i in self.cfg.hooks:
                     hooks.append(self.norm(t[:, 1:]))
         return hooks

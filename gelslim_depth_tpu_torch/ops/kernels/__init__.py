@@ -11,6 +11,9 @@
 - bilinear_resize.bilinear_resize  (replaces no TPU kernel: the DPT head's
   bilinear resizes with align_corners=True, in place of aten's; imported
   from its module, as conv_epilogue is)
+- residual_layer_norm.residual_layer_norm  (replaces no TPU kernel: the ViT
+  encoder's LayerScale residual add with the LayerNorm after it, in place
+  of aten's addcmul and LayerNorm; imported from its module)
 """
 
 from gelslim_depth_tpu_torch.ops.kernels.conv_int8 import (

@@ -21,6 +21,7 @@ from benchmark.loops import closed_dpt
 from benchmark.reference import dpt as ref
 from gelslim_depth_tpu_torch.config import GelslimConfig
 from gelslim_depth_tpu_torch.inference import Predictor
+from gelslim_depth_tpu_torch.models import dpt as dpt_module
 from gelslim_depth_tpu_torch.models.dpt import DPT, DPTConfig, dpt_state_shapes
 from gelslim_depth_tpu_torch.utils import profiling
 from tests.torch_port_helpers import torch_threads
@@ -95,7 +96,8 @@ def test_bfloat16_against_the_reference(bundle):
 
 
 def _without_block(net, i):
-    net.pretrained.blocks[i].forward = lambda x, backend: x
+    # a block's forward hands the next block its norm1 of the output
+    net.pretrained.blocks[i].forward = lambda x, h, backend, next_norm: (x, None if next_norm is None else next_norm(x))
     return net
 
 
@@ -158,9 +160,51 @@ def test_published_widths_on_the_meta_device():
     assert [shapes[f"depth_head.scratch.layer{i}_rn.weight"][:2] for i in range(1, 5)] == [
         (256, 256), (256, 512), (256, 1024), (256, 1024)]
     assert 334e6 < sum(torch.Size(s).numel() for s in shapes.values()) < 336e6
-    with torch.device("meta"):
+    with torch.device("meta"), torch.no_grad():
         hooks = DPT(cfg.dpt_config()).pretrained(torch.empty(2, 3, 308, 420))
     assert [tuple(h.shape) for h in hooks] == [(2, 660, 1024)] * 4
+
+
+def _spy_residual_norms(monkeypatch):
+    """Records (gamma, weight) of every residual_layer_norm call the DPT
+    makes, then runs the op."""
+    calls = []
+    op = dpt_module.residual_layer_norm
+
+    def spy(x, branch, gamma, weight, bias, eps):
+        calls.append((gamma, weight))
+        return op(x, branch, gamma, weight, bias, eps)
+
+    monkeypatch.setattr(dpt_module, "residual_layer_norm", spy)
+    return calls
+
+
+def test_residual_adds_run_with_the_norms_they_feed(bundle, monkeypatch):
+    """Every residual add that a LayerNorm follows goes through
+    ``residual_layer_norm``, with the parameters read live from the
+    modules: block i's ls1 with its norm2, its ls2 with block i+1's norm1;
+    the last block's ls2 add, which the hooks' norm follows, is an
+    ``addcmul``. 2 x depth - 1 sites: 7 at the small depth 4, 47 at the
+    published depth 24 (on the meta device). The served depth is the
+    reference's, as test_float32_against_the_reference holds it."""
+    net = port(bundle)
+    calls = _spy_residual_norms(monkeypatch)
+    with torch.no_grad():
+        got = net(bundle["x"])
+    blocks = net.pretrained.blocks
+    want = []
+    for i, b in enumerate(blocks):
+        want.append((b.ls1.gamma, b.norm2.weight))
+        if i + 1 < len(blocks):
+            want.append((b.ls2.gamma, blocks[i + 1].norm1.weight))
+    assert len(calls) == len(want) == 7
+    assert all(g is wg and w is ww for (g, w), (wg, ww) in zip(calls, want))
+    torch.testing.assert_close(got, bundle["want"], rtol=0, atol=F32_ATOL)
+    calls.clear()
+    cfg = GelslimConfig(model_type="dpt", dpt=PUBLISHED["dpt"], input_tactile_image_size=(308, 420))
+    with torch.device("meta"), torch.no_grad():
+        DPT(cfg.dpt_config()).pretrained(torch.empty(2, 3, 308, 420))
+    assert len(calls) == 2 * 24 - 1 == 47
 
 
 def test_spans_nest_under_serve_unet(bundle):
