@@ -18,12 +18,17 @@ The PyTorch port's copy of ``gelslim_depth_tpu.config``: the same fields,
 the same JSON and the same .py format, so either package reads what the
 other writes. ``unet_config()`` returns the port's ``UNetConfig``.
 
-The port serves a second architecture, a dense-prediction transformer
-(``models/dpt.py``), where ``model_type`` is ``"dpt"``: its widths are the
-one field the JAX package lacks, ``dpt`` (a ``DPTConfig``, or a dict of its
-fields; None for the U-Net, the default), and ``dpt_config()`` returns them
-with the input size filled in. The JAX package reads the port's files and
-drops the field.
+The port serves two more architectures, each with a field of its widths
+that the JAX package lacks: a dense-prediction transformer
+(``models/dpt.py``) where ``model_type`` is ``"dpt"``, its widths ``dpt``
+(a ``DPTConfig``, or a dict of its fields), and Depth Pro
+(``models/depth_pro.py``) where it is ``"depth_pro"``, its widths
+``depth_pro`` (a ``DepthProConfig`` or a dict); each None for the U-Net,
+the default. ``dpt_config()`` and ``depth_pro_config()`` return them with
+the input size filled in. A third field of the port's own,
+``output_interp_method``, is the post's resize back where it differs from
+the front end's ``interp_method`` (None, the default: the same). The JAX
+package reads the port's files and drops these fields.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import json
 import os
 from typing import List, Optional, Tuple
 
+from gelslim_depth_tpu_torch.models.depth_pro import DepthProConfig
 from gelslim_depth_tpu_torch.models.dpt import DPTConfig
 from gelslim_depth_tpu_torch.models.unet import UNetConfig
 
@@ -67,6 +73,8 @@ class GelslimConfig:
     downsample_factor: float = 0.5
     use_difference_image: bool = True
     interp_method: str = "area"
+    # the post's resize back to the frame, where it is not interp_method (the port only)
+    output_interp_method: Optional[str] = None
 
     # CNN options (:28-35)
     input_tactile_image_size: Tuple[int, int] = (160, 213)
@@ -76,8 +84,10 @@ class GelslimConfig:
     model_type: str = "unet"
     activation_func: str = "relu"
     kernel_size: int = 3
-    # the transformer's widths where model_type is "dpt" (the port only)
+    # the transformer's widths where model_type is "dpt", Depth Pro's where
+    # it is "depth_pro" (the port only)
     dpt: Optional[DPTConfig] = None
+    depth_pro: Optional[DepthProConfig] = None
 
     # normalization (:38-43)
     image_normalization_method: str = "0_255_to_0_1"
@@ -97,6 +107,8 @@ class GelslimConfig:
     def __post_init__(self):
         if isinstance(self.dpt, dict):
             self.dpt = DPTConfig.from_dict(self.dpt)
+        if isinstance(self.depth_pro, dict):
+            self.depth_pro = DepthProConfig.from_dict(self.depth_pro)
 
     # --- aliases the reference uses inconsistently -------------------------
     # complete_prediction.py reads `tactile_normalization_*` while the
@@ -127,6 +139,18 @@ class GelslimConfig:
         if self.model_type != "dpt" or self.dpt is None:
             raise ValueError(f"model_type {self.model_type!r} with dpt={self.dpt!r} is not a DPT configuration")
         return dataclasses.replace(self.dpt, image_size=tuple(self.input_tactile_image_size))
+
+    def depth_pro_config(self) -> DepthProConfig:
+        """Depth Pro's configuration, its input the network input size."""
+        if self.model_type != "depth_pro" or self.depth_pro is None:
+            raise ValueError(f"model_type {self.model_type!r} with depth_pro={self.depth_pro!r} "
+                             "is not a Depth Pro configuration")
+        return dataclasses.replace(self.depth_pro, image_size=tuple(self.input_tactile_image_size))
+
+    @property
+    def post_interp_method(self) -> str:
+        """The method of the post's resize back to the frame."""
+        return self.output_interp_method or self.interp_method
 
     # --- JSON artifact ------------------------------------------------------
     def to_json(self) -> str:
@@ -179,11 +203,11 @@ class GelslimConfig:
             ]),
             ("#DATA PROCESSING OPTIONS", [
                 "depth_image_blur_kernel", "downsample_factor",
-                "use_difference_image", "interp_method",
+                "use_difference_image", "interp_method", "output_interp_method",
             ]),
             ("#CNN OPTIONS AND PARAMETERS", [
                 "input_tactile_image_size", "CNN_dimensions", "upconv_stride",
-                "maxpool_size", "model_type", "activation_func", "kernel_size", "dpt",
+                "maxpool_size", "model_type", "activation_func", "kernel_size", "dpt", "depth_pro",
             ]),
             ("#NORMALIZATION PARAMETERS", [
                 "image_normalization_method", "image_normalization_parameters",
@@ -200,7 +224,7 @@ class GelslimConfig:
             lines.append(header)
             for n in names:
                 v = getattr(self, n)
-                if isinstance(v, DPTConfig):
+                if isinstance(v, (DPTConfig, DepthProConfig)):
                     v = dataclasses.asdict(v)
                 elif isinstance(v, tuple):
                     v = tuple(v)

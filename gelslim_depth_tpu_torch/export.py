@@ -38,7 +38,7 @@ import torch
 import torch.nn as nn
 
 from gelslim_depth_tpu_torch.config import GelslimConfig
-from gelslim_depth_tpu_torch.inference import Predictor, QuantizedPredictor, fused_predict_dual, require_per_frame
+from gelslim_depth_tpu_torch.inference import Predictor, QuantizedPredictor, fused_predict_dual, require_served
 from gelslim_depth_tpu_torch.models.unet import full_precision
 from gelslim_depth_tpu_torch.ops.resize import _highest_matmul_precision
 
@@ -92,7 +92,7 @@ def export_predictor(
     """Export the fused dual-frame graph (weights inside) for each batch
     size into one .gsx artifact, on the predictor's device. ``platforms``,
     where given, must name that device's type. Returns path."""
-    require_per_frame(predictor.config, "export_predictor")
+    require_served(predictor.config, "export_predictor")
     device = torch.device(predictor.device)
     if platforms is not None and list(platforms) != [device.type]:
         raise ValueError(

@@ -33,13 +33,14 @@ import torch
 
 from gelslim_depth_tpu_torch import ops
 from gelslim_depth_tpu_torch.config import GelslimConfig
+from gelslim_depth_tpu_torch.models.depth_pro import DepthPro
 from gelslim_depth_tpu_torch.models.dpt import DPT
 from gelslim_depth_tpu_torch.models.unet import UNet
 from gelslim_depth_tpu_torch.utils.device import resolve_device
 from gelslim_depth_tpu_torch.utils.profiling import CALL, span
 
 
-MODEL_TYPES = ("unet", "dpt")
+MODEL_TYPES = ("unet", "dpt", "depth_pro")
 
 
 def _preprocess(config: GelslimConfig, images: torch.Tensor) -> torch.Tensor:
@@ -73,7 +74,7 @@ def _denormalize(config: GelslimConfig, y: torch.Tensor) -> torch.Tensor:
 
 
 def _postprocess(config: GelslimConfig, y: torch.Tensor, output_size) -> torch.Tensor:
-    return ops.resize(_denormalize(config, y), output_size, config.interp_method)
+    return ops.resize(_denormalize(config, y), output_size, config.post_interp_method)
 
 
 def kernel_front_end(config: GelslimConfig, frames: torch.Tensor, base_frame: Optional[torch.Tensor],
@@ -117,13 +118,20 @@ def is_temporal(config: GelslimConfig) -> bool:
     return config.model_type == "dpt" and config.dpt is not None and config.dpt.temporal
 
 
-def require_per_frame(config: GelslimConfig, what: str) -> None:
-    """Raise where ``what`` cannot serve the configuration because its
-    network needs each finger's frames in clips."""
+def require_served(config: GelslimConfig, what: str) -> None:
+    """Raise where ``what`` cannot serve the configuration: a temporal
+    network needs each finger's frames in clips, which ``what`` does not
+    form; Depth Pro is served through ``Predictor``'s calls alone until its
+    paths of single frames, int8 and export are built and measured."""
     if is_temporal(config):
         raise ValueError(
             f"{what} does not take a temporal configuration: its DPT head (Video Depth Anything) attends "
             f"across clips of num_frames={config.dpt.num_frames} frames of each finger, which {what} does not form"
+        )
+    if config.model_type == "depth_pro":
+        raise ValueError(
+            f"{what} does not take a Depth Pro configuration yet: Predictor.predict_dual_frames serves it, "
+            "in float32 or bfloat16"
         )
 
 
@@ -144,8 +152,8 @@ def fused_predict_dual(
     use_kernel routes the diff+resize+normalize front end through
     ``fused_preprocess_dual``; None takes it when the frames are on CUDA.
     The kernel hard-wires the area resize and a shared (6, H, W) base, so
-    another interp_method or a batched (N, 6, H, W) base takes the composed
-    path.
+    another interp_method (Depth Pro's bilinear upsample to its fixed
+    input) or a batched (N, 6, H, W) base takes the composed path.
 
     A temporal network (``is_temporal``) gets the N dual frames as clips:
     both front ends hand it the left finger's N frames, then the right's,
@@ -233,13 +241,15 @@ class Predictor(_Serving):
     float32 U-Net built from it whatever the compute dtype. device
     defaults to ``cuda`` and raises when no CUDA device is present.
 
-    The network is the configuration's ``model_type``: ``"unet"``, or
+    The network is the configuration's ``model_type``: ``"unet"``;
     ``"dpt"``, the dense-prediction transformer (``models/dpt.py``) at
     ``config.dpt_config()``, whose state dict has Depth Anything V2's
-    layout. It serves through the same front end, ``serve.unet`` span and
-    post; ``quantize`` and the U-Net checkpoint loaders refuse it. With
-    the temporal head (``DPTConfig.num_frames``, Video Depth Anything) a
-    call's frames are served as clips (``fused_predict_dual``).
+    layout; or ``"depth_pro"``, Depth Pro (``models/depth_pro.py``) at
+    ``config.depth_pro_config()``. Each serves through the same front end,
+    ``serve.unet`` span and post; ``quantize`` and the U-Net checkpoint
+    loaders refuse the transformers. With the temporal head
+    (``DPTConfig.num_frames``, Video Depth Anything) a call's frames are
+    served as clips (``fused_predict_dual``).
     """
 
     def __init__(
@@ -263,7 +273,12 @@ class Predictor(_Serving):
         """The configuration's network in float32 on the predictor's
         device, the state dict loaded."""
         with torch.device(self.device):
-            net = DPT(self.config.dpt_config()) if self.unet_cfg is None else UNet(self.unet_cfg)
+            if self.config.model_type == "unet":
+                net = UNet(self.unet_cfg)
+            elif self.config.model_type == "dpt":
+                net = DPT(self.config.dpt_config())
+            else:
+                net = DepthPro(self.config.depth_pro_config())
         net.load_state_dict(self.state_dict)
         return net
 
@@ -300,7 +315,7 @@ class Predictor(_Serving):
         calibration batch, before deploying."""
         from gelslim_depth_tpu_torch.models.quantize import quantize_unet
 
-        require_per_frame(self.config, "quantize")
+        require_served(self.config, "quantize")
         _require_unet(self.config, "quantize")
         # a float32 UNet of its own: the quantized model moves between
         # devices without taking this predictor's net along
@@ -504,7 +519,7 @@ class StreamingEngine:
             raise ValueError("max_dispatches must be >= 1")
         config = getattr(predictor, "config", None)
         if config is not None:
-            require_per_frame(config, "StreamingEngine")
+            require_served(config, "StreamingEngine")
         self.predictor = predictor
         device = getattr(predictor, "device", None)
         self._cuda = device if device is not None and torch.device(device).type == "cuda" else None

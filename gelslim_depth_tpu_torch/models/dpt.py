@@ -299,7 +299,8 @@ def _residual_norm(x: torch.Tensor, branch: torch.Tensor, scale: LayerScale,
 class DinoEncoder(nn.Module):
     """DINOv2's ``DinoVisionTransformer`` without registers, its position
     table at the configuration's grid; ``forward`` returns the hooked
-    blocks' outputs through the final norm, class token dropped."""
+    blocks' outputs through the final norm, then the raw outputs of the
+    blocks that ``raw`` names, class token dropped each."""
 
     def __init__(self, cfg: DPTConfig):
         super().__init__()
@@ -313,7 +314,7 @@ class DinoEncoder(nn.Module):
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
         self.norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, raw: Tuple[int, ...] = ()) -> List[torch.Tensor]:
         n, c = x.shape[:2]
         p = self.cfg.patch_size
         gh, gw = self.cfg.grid
@@ -324,7 +325,7 @@ class DinoEncoder(nn.Module):
         t = F.linear(patches, pe.weight.flatten(1), pe.bias)
         t = torch.cat([self.cls_token.expand(n, -1, -1), t], dim=1) + self.pos_embed
         backend = attention_backend(x.device, x.dtype)
-        hooks, h = [], None
+        hooks, raw_out, h = [], [], None
         with sdpa_kernel([backend]):
             for i, block in enumerate(self.blocks):
                 next_norm = self.blocks[i + 1].norm1 if i + 1 < len(self.blocks) else None
@@ -332,7 +333,9 @@ class DinoEncoder(nn.Module):
                     t, h = block(t, h, backend, next_norm)
                 if i in self.cfg.hooks:
                     hooks.append(self.norm(t[:, 1:]))
-        return hooks
+                if i in raw:  # each block writes a new stream, so the view stays this block's output
+                    raw_out.append(t[:, 1:])
+        return hooks + raw_out
 
 
 # ---------------------------------------------------------------------------
@@ -355,16 +358,27 @@ class ResidualConvUnit(nn.Module):
 
 
 class FeatureFusionBlock(nn.Module):
-    def __init__(self, features: int):
+    """``x (+ resConfUnit1(skip))``, ``resConfUnit2``, an upsample, a 1x1
+    conv. The upsample is the DPT's bilinear resize to ``size``; with
+    ``deconv`` (Depth Pro's ``FeatureFusionBlock2d``) a transposed conv k2
+    s2 without bias in its place, and with neither none."""
+
+    def __init__(self, features: int, deconv: bool = False):
         super().__init__()
         self.resConfUnit1 = ResidualConvUnit(features)
         self.resConfUnit2 = ResidualConvUnit(features)
+        self.deconv = nn.ConvTranspose2d(features, features, 2, stride=2, bias=False) if deconv else None
         self.out_conv = nn.Conv2d(features, features, 1)
 
-    def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor], size: Tuple[int, int]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor],
+                size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         if skip is not None:
             x = x + self.resConfUnit1(skip)
-        x = bilinear_resize(self.resConfUnit2(x), size)
+        x = self.resConfUnit2(x)
+        if self.deconv is not None:
+            x = F.conv_transpose2d(x, self.deconv.weight, stride=2)
+        elif size is not None:
+            x = bilinear_resize(x, size)
         return F.conv2d(x, self.out_conv.weight, self.out_conv.bias)
 
 

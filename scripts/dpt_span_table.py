@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Where a transformer cell's device time goes, by the program's spans:
-the cell's loop (``benchmark/loops/closed_dpt.py``, or ``closed_vda.py``
-for the video cell) run traced for each seed, its slice's
-``spans.SpanTrace`` printed as ``benchmark/spans.py`` prints a U-Net
-cell's (device ms, launches, host ms and held idle ms a call, a row a
-span label: the video cell's temporal modules and their attention and
-feed-forward spans by site), with the per-layer metrics, the device's
-busy share and the SDPA calls by backend, the encoder's and the temporal
-modules'; the correctness comparison is not run:
+the cell's loop (``benchmark/loops/closed_dpt.py``, ``closed_vda.py`` for
+the video cell, ``closed_depth_pro.py`` for Depth Pro's) run traced for
+each seed, its slice's ``spans.SpanTrace`` printed as
+``benchmark/spans.py`` prints a U-Net cell's (device ms, launches, host
+ms and held idle ms a call, a row a span label: the video cell's temporal
+modules and their attention and feed-forward spans by site, Depth Pro's
+pyramid, encoders, merge, upsample blocks, fusion levels by site and
+head), with the per-layer metrics, the device's busy share, the SDPA
+calls by backend, the encoder's and the temporal modules', and Depth
+Pro's encoder sequences (``DepthPro.tiles``); the correctness comparison
+is not run:
 
     python3 scripts/dpt_span_table.py --seed 11 --seed 12 --out dpt_spans.json
     python3 scripts/dpt_span_table.py --workload vda_vitl14_clip64 --seed 11 --out vda_spans.json
+    python3 scripts/dpt_span_table.py --workload depth_pro_batch8 --seed 11 --out depth_pro_spans.json
 """
 
 import argparse
@@ -37,6 +41,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("dpt_span_table: no CUDA card", file=sys.stderr)
         return 2
+    from gelslim_depth_tpu_torch.models.depth_pro import DepthPro
     from gelslim_depth_tpu_torch.models.dpt import DPT
 
     torch.cuda.set_device(0)
@@ -45,6 +50,7 @@ def main(argv=None) -> int:
     kind = torch.cuda.get_device_name(0)
     runs = []
     for seed in args.seed:
+        tiles = DepthPro.tiles
         r = harness.load_module("loops", cell.traffic["loop"]).run(cell, seed, args.seconds, True,
                                                                     torch.device("cuda"))
         st = r.trace
@@ -55,7 +61,8 @@ def main(argv=None) -> int:
                  "metrics": {k: v["value"] for k, v in harness.per_layer_metrics(cell, st, kind, ROOT).items()},
                  "memory_peak_bytes": torch.cuda.max_memory_allocated(),
                  "attention_calls": dict(DPT.attention_calls),
-                 "temporal_attention_calls": dict(DPT.temporal_attention_calls), "table": st.table()}
+                 "temporal_attention_calls": dict(DPT.temporal_attention_calls),
+                 "depth_pro_tiles": DepthPro.tiles - tiles, "table": st.table()}
         runs.append(entry)
         print(json.dumps({k: v for k, v in entry.items() if k != "table"}), file=sys.stderr)
         print(spans.format_table(entry["table"]), file=sys.stderr)

@@ -13,14 +13,16 @@ cell. The tree's own ``benchmark/`` makes the inputs: the U-Net cells' as
 ``benchmark/serving.py::serving_inputs`` does, the transformer cell's
 (``dpt_vitl14_batch64``) as ``benchmark/loops/closed_dpt.py::run`` does,
 the video cell's (``vda_vitl14_clip64``) as
-``benchmark/loops/closed_vda.py::call_inputs`` does. Needs a CUDA device.
+``benchmark/loops/closed_vda.py::call_inputs`` does, Depth Pro's
+(``depth_pro_batch8``) as ``benchmark/loops/closed_depth_pro.py::call_inputs``
+does. Needs a CUDA device.
 """
 
 import hashlib
 import os
 import sys
 
-CELLS = ("int8_batch64", "bf16_batch64", "dpt_vitl14_batch64", "vda_vitl14_clip64")
+CELLS = ("int8_batch64", "bf16_batch64", "dpt_vitl14_batch64", "vda_vitl14_clip64", "depth_pro_batch8")
 
 
 def main() -> None:
@@ -51,7 +53,13 @@ def main() -> None:
         pool_inputs, base, sd = closed_vda.call_inputs(cell, seed, device)
         return pool_inputs, base, None, sd
 
-    makers = {"closed_dpt": dpt_inputs, "closed_vda": vda_inputs}
+    def depth_pro_inputs(cell, seed, device):
+        from benchmark.loops import closed_depth_pro
+
+        pool_inputs, base, sd = closed_depth_pro.call_inputs(cell, seed, device)
+        return pool_inputs, base, None, sd
+
+    makers = {"closed_dpt": dpt_inputs, "closed_vda": vda_inputs, "closed_depth_pro": depth_pro_inputs}
     for name in CELLS:
         try:
             cell = harness.find_cell(name)

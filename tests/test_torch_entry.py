@@ -15,8 +15,10 @@ from gelslim_depth_tpu_torch.ops.kernels import fused_preprocess_dual
 
 def test_flagship_config_matches_graft_entry():
     ours, theirs = dataclasses.asdict(flagship_config()), dataclasses.asdict(__graft_entry__._flagship_config())
-    # the port's one field of its own, the transformer's widths, is unset for the U-Net
-    assert ours.pop("dpt") is None
+    # the port's fields of its own, the transformers' widths and the post's
+    # resize where it differs from the front end's, are unset for the U-Net
+    for own in ("dpt", "depth_pro", "output_interp_method"):
+        assert ours.pop(own) is None
     assert ours.keys() == theirs.keys()
     for k, v in theirs.items():
         assert ours[k] == (list(v) if isinstance(v, tuple) and isinstance(ours[k], list) else v), k
