@@ -125,7 +125,13 @@ DPT_CONFIG = "benchmark/configs/dpt_vitl14_bf16.json"  # Depth Anything V2 vitl 
 RESIZE_SITES = (("refinenet4", 256, (11, 15), (22, 30)), ("refinenet3", 256, (22, 30), (44, 60)),
                 ("refinenet2", 256, (44, 60), (88, 120)), ("refinenet1", 256, (88, 120), (176, 240)),
                 ("output", 128, (176, 240), (308, 420)))
-DPT_EPILOGUES_PER_CALL = 8  # conv_epilogue launches a DPT serving call
+# conv_epilogue launches a DPT serving call: 8 with a relu, 9 bias adds, 7
+# bias and skip adds (the residual form, one a residual unit)
+DPT_EPILOGUES_PER_CALL = 24
+DPT_RESIDUAL_EPILOGUES_PER_CALL = 7
+# a residual unit's second conv in Depth Pro's decoder at 16 finger images
+# (level 1, 384 x 384): the residual form timed alone
+RESIDUAL_SHAPE = (16, 256, 384, 384)
 RLN_SOURCE = "gelslim_depth_tpu_torch/csrc/residual_layer_norm.cu"
 RLN_REPLACES = ("none: torch.addcmul + F.layer_norm at gelslim_depth_tpu_torch/models/dpt.py's encoder residual adds "
                 "(no transformer in JAX)")
@@ -706,16 +712,22 @@ def epilogue_sites(n_img: int):
 def epilogue_inputs(g, shape, layout, mode, int8, act="relu"):
     """A bf16 conv output of the site's shape and layout, with a NaN and
     both infinities among its values; float32 BN vectors and the
-    activation, or a bf16 bias; the next site's scale."""
+    activation, or a bf16 bias, and with mode 'residual' a bf16 residual of
+    y's shape and layout besides; the next site's scale."""
     c = shape[1]
-    y = (torch.randn(shape, generator=g, device="cuda") * 3).to(torch.bfloat16)
-    if layout == "channels_last":
-        y = y.contiguous(memory_format=torch.channels_last)
+
+    def conv_out():
+        t = (torch.randn(shape, generator=g, device="cuda") * 3).to(torch.bfloat16)
+        return t.contiguous(memory_format=torch.channels_last) if layout == "channels_last" else t
+
+    y = conv_out()
     flat = y.view(-1) if y.is_contiguous() else y.permute(0, 2, 3, 1).reshape(-1)
     flat[[5, 17, 40]] = torch.tensor([float("nan"), float("inf"), -float("inf")], device="cuda").to(y.dtype)
     vec = lambda lo, hi: torch.rand(c, generator=g, device="cuda") * (hi - lo) + lo  # noqa: E731
-    kw = dict(bias=vec(-1, 1).to(torch.bfloat16)) if mode == "bias" else \
+    kw = dict(bias=vec(-1, 1).to(torch.bfloat16)) if mode in ("bias", "residual") else \
         dict(bn_mul=vec(0.2, 1.8), bn_add=vec(-0.5, 0.5), act=act)
+    if mode == "residual":
+        kw["residual"] = conv_out()
     if int8:
         kw["q_scale"] = torch.full((1,), 0.05, device="cuda")
     return y, kw
@@ -740,8 +752,12 @@ def check_conv_epilogue(g):
     odd = [((2, 12, 9, 11), "channels_last", "bn", True, "relu"), ((3, 5, 2, 3), "nchw", "bn", False, "relu"),
            ((2, 1024, 10, 13), "nchw", "bn", True, "relu"), ((2, 64, 17, 23), "channels_last", "bn", False, "tanh"),
            ((2, 64, 17, 23), "nchw", "bn", True, "mish"), ((2, 32, 15, 19), "nchw", "bias", False, "relu")]
+    residual = [((2, 256, 22, 30), "channels_last", "residual", False, "none"),
+                ((2, 256, 44, 60), "nchw", "residual", False, "none"),
+                ((2, 12, 9, 11), "channels_last", "residual", False, "none"),
+                ((3, 5, 7, 9), "nchw", "residual", False, "none")]
     cases = [(site, shape, layout, mode, int8, "relu") for _, site, shape, layout, mode, int8 in epilogue_sites(2)]
-    cases += [("extra", *c) for c in odd]
+    cases += [("extra", *c) for c in odd + residual]
     worst = 0.0
     for site, shape, layout, mode, int8, act in cases:
         y, kw = epilogue_inputs(g, shape, layout, mode, int8, act)
@@ -786,6 +802,44 @@ def measure_conv_epilogue_sites(peaks, g):
               f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
               f"({100 * rec['bound_ms'] / rec['ms']:.1f}% of it)", flush=True)
     return out
+
+
+def measure_residual_epilogue(peaks, g):
+    """conv_epilogue's bias form and residual form alone at a residual
+    unit's second conv in Depth Pro's decoder (RESIDUAL_SHAPE, bf16,
+    channels-last), each first held to aten's chain bit for bit: device ms
+    against the byte bound (y, and the residual, read once, the output
+    written once, at the card's bandwidth) and against aten's ops, the
+    bias add (a broadcast over a channels-last tensor: aten's strided
+    kernel) and the skip add. Returns the record."""
+    bw = peaks[0]
+    y, kw = epilogue_inputs(g, RESIDUAL_SHAPE, "channels_last", "residual", False)
+    bias, x = kw["bias"], kw["residual"]
+    v = y + bias.view(1, -1, 1, 1)
+    rec = {"shape": list(RESIDUAL_SHAPE)}
+    for form, args, want in (("bias", dict(bias=bias), v), ("residual", kw, v + x)):
+        got = conv_epilogue(y, **args)
+        torch.cuda.synchronize()
+        check(got.stride() == want.stride() and same_bits(got, want),
+              f"conv_epilogue {form} form at {RESIDUAL_SHAPE} differs from aten's chain")
+        del got, want
+        torch.cuda.empty_cache()
+        bound = 1e3 * y.numel() * y.element_size() * (3 if form == "residual" else 2) / bw
+        ms = kernel_device_ms(lambda: conv_epilogue(y, **args), bound, f"conv_epilogue {form} {RESIDUAL_SHAPE}")
+        rec[form] = {"ms": ms, "bound_ms": bound}
+        torch.cuda.empty_cache()
+    rec["aten_bias_add_ms"] = device_ms(lambda: y + bias.view(1, -1, 1, 1), calls=5)
+    rec["aten_skip_add_ms"] = device_ms(lambda: v + x, calls=5)
+    for form in ("bias", "residual"):
+        r = rec[form]
+        print(f"conv_epilogue {form} form {RESIDUAL_SHAPE} bf16 channels-last: kernel {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({100 * r['bound_ms'] / r['ms']:.1f}% of it)", flush=True)
+    print(f"aten at {RESIDUAL_SHAPE}: bias add {rec['aten_bias_add_ms']:.4f} ms, skip add "
+          f"{rec['aten_skip_add_ms']:.4f} ms (the residual form's pair "
+          f"{rec['aten_bias_add_ms'] + rec['aten_skip_add_ms']:.4f})", flush=True)
+    del y, x, v
+    torch.cuda.empty_cache()
+    return rec
 
 
 def resize_input(g, n_img, c, hw, dtype=torch.bfloat16):
@@ -919,8 +973,9 @@ def drive_dpt(g):
     """The transformer's serving path: a bf16 Predictor of the DPT at Depth
     Anything V2 vitl's widths (seeded random weights) on 2 dual frames.
     Each call launches bilinear_resize at the head's five sites,
-    conv_epilogue 8 times and residual_layer_norm 47 times, and serves the
-    depth that the same predictor serves with the twin at the resizes.
+    conv_epilogue 24 times (7 of them its residual form) and
+    residual_layer_norm 47 times, and serves the depth that the same
+    predictor serves with the twin at the resizes.
     Returns (record, launches)."""
     with open(DPT_CONFIG) as f:
         cfg = GelslimConfig.from_json(f.read())
@@ -932,6 +987,9 @@ def drive_dpt(g):
     got = pred.predict_dual_frames(frames, base, FRAME)
     torch.cuda.synchronize()
     launches = read_launches()
+    check(launches["conv_epilogue_residual"] == DPT_RESIDUAL_EPILOGUES_PER_CALL,
+          f"a DPT serving call launched conv_epilogue's residual form {launches['conv_epilogue_residual']} times, "
+          f"want {DPT_RESIDUAL_EPILOGUES_PER_CALL}")
     per_call = (len(RESIZE_SITES), DPT_EPILOGUES_PER_CALL, RLN_PER_CALL)
     check((launches["bilinear_resize"], launches["conv_epilogue"], launches["residual_layer_norm"]) == per_call,
           f"a DPT serving call launched {launches}, want {per_call[0]} bilinear_resize, {per_call[1]} "
@@ -1022,6 +1080,7 @@ def reset_launches() -> None:
     conv2d_int8.launches = 0
     conv2d_int8.launches_by_path = dict.fromkeys(conv_int8.PATHS, 0)
     conv_epilogue.launches = 0
+    conv_epilogue.residual_launches = 0
     bilinear_resize.launches = 0
     residual_layer_norm.launches = 0
 
@@ -1029,6 +1088,7 @@ def reset_launches() -> None:
 def read_launches() -> dict:
     return {"fused_preprocess_dual": fused_preprocess_dual.launches, "conv2d_int8": conv2d_int8.launches,
             "conv2d_int8_by_path": dict(conv2d_int8.launches_by_path), "conv_epilogue": conv_epilogue.launches,
+            "conv_epilogue_residual": conv_epilogue.residual_launches,
             "bilinear_resize": bilinear_resize.launches, "residual_layer_norm": residual_layer_norm.launches}
 
 
@@ -2341,6 +2401,7 @@ def main() -> None:
     timings, e2e = measure(pred16, qpred, frames64, base, peaks)
     sites = measure_conv_sites(peaks, g)
     epilogues = measure_conv_epilogue_sites(peaks, g)
+    residual_epilogue = measure_residual_epilogue(peaks, g)
     resizes = measure_bilinear_resize_sites(peaks, g)
     residual_norms = measure_residual_layer_norm(peaks, g)
     dpt_run, dpt_launches = drive_dpt(g)
@@ -2412,6 +2473,8 @@ def main() -> None:
         "bound_ms": sum(v["bound_ms"] for v in epilogues.values()),
         "bound_by": "bytes",
         "graphs": {k: {kk: vv for kk, vv in v.items() if kk != "sites"} for k, v in epilogues.items()},
+        "residual_launches": sum(v.get("conv_epilogue_residual", 0) for v in path_launches.values()),
+        "alone_at_residual_unit": residual_epilogue,
     }, {
         # times summed over the DPT head's five sites at N=128 finger images;
         # plain: the twin, which is the library call F.interpolate

@@ -1,7 +1,7 @@
-// The epilogue of the U-Net's float convs in one pass, for Hopper (sm_90a):
-// the upconv's bias or the folded eval BatchNorm, the activation, the
-// rounding to the compute dtype and, where an int8 conv reads the result,
-// its int8 quantization.
+// The epilogue of a float conv in one pass, for Hopper (sm_90a): the
+// conv's bias or the folded eval BatchNorm, the activation, the rounding to
+// the compute dtype and, where an int8 conv reads the result, its int8
+// quantization; or the bias and a residual unit's skip add.
 //
 // Replaces the elementwise passes that XLA fuses into the JAX package's
 // float convs' epilogues:
@@ -13,17 +13,28 @@
 //     output (inc/conv1, the float upconvs) for the next int8 conv.
 // None is a Pallas kernel. Without it the port runs them as aten's separate
 // passes: up to eight over a float32 temporary for inc/conv1 of the int8
-// graph, four for each BatchNorm site of the float graph.
+// graph, four for each BatchNorm site of the float graph. In the
+// transformers' heads (no JAX counterpart) it replaces the bias add that
+// PyTorch runs after a cuDNN conv (a broadcast add on a channels-last
+// output, which falls to aten's strided elementwise kernel at ~38% of its
+// byte bound) and, at each residual unit's second conv, the skip add after
+// it.
 //
 // What it computes, for y (N, C, H, W) in bfloat16 or float32, either
-// NCHW-contiguous or channels-last (NHWC in memory), in one of the two forms
-// the U-Net calls (round: to y's dtype):
-//   an upconv's bias (C,), in y's dtype:    v = round(y + bias[c])
+// NCHW-contiguous or channels-last (NHWC in memory), in one of three forms
+// (round: to y's dtype):
+//   a conv's bias (C,), in y's dtype:       v = round(y + bias[c])
 //   a BatchNorm's float32 (C,) vectors and its activation (relu | tanh | mish):
 //                                           v = round(act(y * bn_mul[c] + bn_add[c]))
 //   out = v, in y's dtype and memory layout; or, given a one-element
 //   float32 scale s, out = clamp(rint(v / s), -127, 127) as int8 NHWC
 //   (N, H, W, C): IEEE division, half to even, NaN to 0.
+//   the residual form, a bias and a residual x of y's shape, dtype and layout:
+//                                           out = round(round(y + bias[c]) + x)
+// The U-Net calls the first two; the DPT head and Depth Pro's decoder and
+// head the bias form at each other conv that has a bias, and the residual
+// form at the second conv of each ResidualConvUnit (7 a DPT call, 9 a
+// Depth Pro call), where the chain was a bias add, then the skip add.
 // Each multiply and add is rounded on its own (__fmul_rn, __fadd_rn, no
 // contracted FMA) and rounded where PyTorch's separate ops round (a bf16 +
 // bf16 add is a float32 add rounded to bf16; the BN affine and the
@@ -37,7 +48,8 @@
 // flagship's N=64 dual frames (128 finger images) inc/conv1's 279 M bf16
 // elements in and int8 out are 0.84 GB, 0.25 ms at the H100 SXM's 3.35 TB/s;
 // the float graph's 18 BatchNorm sites move 2.12 G bf16 elements in and out,
-// 8.5 GB, 2.5 ms.
+// 8.5 GB, 2.5 ms. The residual form reads y and x and writes out: at Depth
+// Pro's 16 x 256 x 384 x 384 bf16 map, 3.6 GB, 1.08 ms (the bias form 0.72).
 //
 // Design. One pass over flat vectors of 8 consecutive elements: a 16-B
 // load of bf16 (two of float32), a 16-B store (8 B of int8), neighbouring
@@ -51,17 +63,21 @@
 // smallest is 10 x 13), so a thread loads two channels' parameters and
 // picks per element. Flat vectors rather than a block a plane: the deep
 // planes hold 130 elements, too few to fill a block, and start off 16 B.
-// An int8 output of an NCHW y is stored a byte at a time (NHWC). Anything
-// else (misaligned pointers, other C or plane sizes, 2^32 elements or more)
+// An int8 output of an NCHW y is stored a byte at a time (NHWC). The
+// residual form loads x's vectors beside y's, at the same offsets. Indices
+// are 32-bit: a tensor of 2^32 elements or more (Depth Pro's transposed
+// conv to 1536 x 1536 x 128 at 16 images) is launched a run of whole
+// images at a time, each run below 2^32. Anything else (misaligned
+// pointers, other C or plane sizes, an image of 2^32 elements or more)
 // takes a plain loop of one element a thread, and the last total % 8
 // elements of a vector launch too.
 //
 // At 3 bytes an element (bf16 in, int8 out) the card moves ~4.3 elements
 // an SM a cycle, so the epilogue has ~30 instructions an element before it,
 // not the memory, is the limit, and the exact quotient takes 12. So the
-// form (bias, BatchNorm and relu, BatchNorm and tanh or mish) is compiled
-// in, a pair of values is rounded to bf16 by one conversion, and the int8
-// bytes are packed by byte permutes. A sweep of the launch shape on the
+// form (bias, BatchNorm and relu, BatchNorm and tanh or mish, bias and
+// residual) is compiled in, a pair of values is rounded to bf16 by one
+// conversion, and the int8 bytes are packed by byte permutes. A sweep of the launch shape on the
 // H100 (PERF.md section 6) chose 128 threads and 4 vectors a thread: the
 // int8 graph's 5 sites reach 87% of their byte bound, the bf16 graph's 22
 // sites 88%.
@@ -91,6 +107,7 @@ struct Params {
   const float* bn_mul;   // null with a bias
   const float* bn_add;   // null with a bias
   const float* q_scale;  // null: store in y's dtype
+  const void* residual;  // y's dtype and layout; null but in the residual form
   long long total;  // N * C * H * W
   long long hw;     // H * W
   int c;
@@ -240,7 +257,7 @@ __device__ __forceinline__ unsigned pack4(int q0, int q1, int q2, int q3) {
 
 // One element, any layout and size: the fallback loop and a vector
 // launch's tail. NHWC offset of NCHW element i: ((n * hw + pos) * C + c).
-template <typename T, bool kQ, bool kCL>
+template <typename T, bool kQ, bool kCL, bool kRes>
 __device__ __forceinline__ void one_element(const Params& p, long long i) {
   long long c, q_off = i;
   if (kCL) {
@@ -256,6 +273,10 @@ __device__ __forceinline__ void one_element(const Params& p, long long i) {
   else
     v = activate(p.act, __fadd_rn(__fmul_rn(v, __ldg(p.bn_mul + c)), __ldg(p.bn_add + c)));
   if (sizeof(T) == 2) v = round_one(v);
+  if (kRes) {
+    v = __fadd_rn(v, load1(static_cast<const T*>(p.residual), i));
+    if (sizeof(T) == 2) v = round_one(v);
+  }
   if (kQ)
     static_cast<int8_t*>(p.out)[q_off] = static_cast<int8_t>(quantize(v, q_scale(p.q_scale)));
   else if (sizeof(T) == 2)
@@ -264,11 +285,23 @@ __device__ __forceinline__ void one_element(const Params& p, long long i) {
     static_cast<float*>(p.out)[i] = v;
 }
 
-template <typename T, bool kQ, bool kCL>
+template <typename T, bool kQ, bool kCL, bool kRes>
 __global__ void __launch_bounds__(kThreads) conv_epilogue_loop(Params p) {
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < p.total; i += stride)
-    one_element<T, kQ, kCL>(p, i);
+    one_element<T, kQ, kCL, kRes>(p, i);
+}
+
+// The skip add of the residual form on 8 values that the bias add left
+// rounded: a second op of y's dtype, rounded again.
+template <bool kBf16>
+__device__ __forceinline__ void add_residual(float (&v)[kVec], const float (&r)[kVec]) {
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) v[k] = __fadd_rn(v[k], r[k]);
+  if (kBf16) {
+#pragma unroll
+    for (int k = 0; k < kVec; k += 2) round_pair(v[k], v[k + 1]);
+  }
 }
 
 // The bias or bn_mul (a) and bn_add (b) of the 8 channels from the one of
@@ -286,12 +319,14 @@ __device__ __forceinline__ void channel_params(const Params& p, unsigned e, floa
   }
 }
 
-// The 8 channels-last elements from flat index e, loaded into v, with
-// their channels' parameters: the epilogue and the store.
-template <typename T, bool kQ, int kAct>
-__device__ __forceinline__ void vector8_cl(const Params& p, unsigned e, float (&v)[kVec], const float (&a)[kVec],
-                                           const float (&b)[kVec], const QScale& qs) {
+// The 8 channels-last elements from flat index e, loaded into v (and their
+// residuals into r), with their channels' parameters: the epilogue and the
+// store.
+template <typename T, bool kQ, int kAct, bool kRes>
+__device__ __forceinline__ void vector8_cl(const Params& p, unsigned e, float (&v)[kVec], const float (&r)[kVec],
+                                           const float (&a)[kVec], const float (&b)[kVec], const QScale& qs) {
   epilogue<sizeof(T) == 2, kQ, kAct>(p, v, a, b);
+  if (kRes) add_residual<sizeof(T) == 2>(v, r);
   if (kQ) {
     int q[kVec];
 #pragma unroll
@@ -303,11 +338,12 @@ __device__ __forceinline__ void vector8_cl(const Params& p, unsigned e, float (&
   }
 }
 
-// The 8 NCHW elements from flat index e, loaded into v: their parameters
-// (the plane of element e and, from pos + k == hw on, the next one), the
-// epilogue, the store.
-template <typename T, bool kQ, int kAct>
-__device__ __forceinline__ void vector8_nchw(const Params& p, unsigned e, float (&v)[kVec], const QScale& qs) {
+// The 8 NCHW elements from flat index e, loaded into v (and their
+// residuals into r): their parameters (the plane of element e and, from
+// pos + k == hw on, the next one), the epilogue, the store.
+template <typename T, bool kQ, int kAct, bool kRes>
+__device__ __forceinline__ void vector8_nchw(const Params& p, unsigned e, float (&v)[kVec], const float (&r)[kVec],
+                                             const QScale& qs) {
   const unsigned hw = static_cast<unsigned>(p.hw), C = static_cast<unsigned>(p.c);
   const unsigned plane = e / hw, pos = e - plane * hw;
   const unsigned c = p.c_mask ? plane & p.c_mask : plane % C, c_next = c + 1 == C ? 0 : c + 1;
@@ -326,6 +362,7 @@ __device__ __forceinline__ void vector8_nchw(const Params& p, unsigned e, float 
     b[k] = k >= cross ? b1 : b0;
   }
   epilogue<sizeof(T) == 2, kQ, kAct>(p, v, a, b);
+  if (kRes) add_residual<sizeof(T) == 2>(v, r);
   if (kQ) {
     // int8 NHWC from NCHW: a byte at a time
     int8_t* out = static_cast<int8_t*>(p.out);
@@ -345,15 +382,20 @@ __device__ __forceinline__ void vector8_nchw(const Params& p, unsigned e, float 
 
 // The vector route: every pointer 16-B aligned, total < 2^32, and
 // channels-last C % 8 == 0 or NCHW H * W >= 8. A block owns kSub *
-// kThreads vectors, thread t the vectors t, t + kThreads, ...
-template <typename T, bool kQ, bool kCL, int kAct>
+// kThreads vectors, thread t the vectors t, t + kThreads, ... The residual
+// form (kRes) loads x's vectors with y's, before it computes any.
+template <typename T, bool kQ, bool kCL, int kAct, bool kRes>
 __global__ void __launch_bounds__(kThreads) conv_epilogue_vec(Params p) {
   const unsigned n_vec = static_cast<unsigned>(p.total / kVec);
   const unsigned t0 = blockIdx.x * (kThreads * kSub) + threadIdx.x;
-  float v[kSub][kVec];
+  float v[kSub][kVec], r[kSub][kVec];
 #pragma unroll
-  for (int s = 0; s < kSub; ++s)
-    if (t0 + s * kThreads < n_vec) load8(static_cast<const T*>(p.y), (t0 + s * kThreads) * kVec, v[s]);
+  for (int s = 0; s < kSub; ++s) {
+    if (t0 + s * kThreads < n_vec) {
+      load8(static_cast<const T*>(p.y), (t0 + s * kThreads) * kVec, v[s]);
+      if (kRes) load8(static_cast<const T*>(p.residual), (t0 + s * kThreads) * kVec, r[s]);
+    }
+  }
   const QScale qs = q_scale(kQ ? p.q_scale : nullptr);
   if (kCL) {
     // a thread's vectors lie kThreads * 8 elements apart: on the same
@@ -365,30 +407,35 @@ __global__ void __launch_bounds__(kThreads) conv_epilogue_vec(Params p) {
       const unsigned e = (t0 + s * kThreads) * kVec;
       if (t0 + s * kThreads >= n_vec) break;
       if (!p.cl_shared) channel_params<T, kAct>(p, e, a, b);
-      vector8_cl<T, kQ, kAct>(p, e, v[s], a, b, qs);
+      vector8_cl<T, kQ, kAct, kRes>(p, e, v[s], r[s], a, b, qs);
     }
   } else {
 #pragma unroll
     for (int s = 0; s < kSub; ++s)
-      if (t0 + s * kThreads < n_vec) vector8_nchw<T, kQ, kAct>(p, (t0 + s * kThreads) * kVec, v[s], qs);
+      if (t0 + s * kThreads < n_vec) vector8_nchw<T, kQ, kAct, kRes>(p, (t0 + s * kThreads) * kVec, v[s], r[s], qs);
   }
   // the last total % 8 elements, one a thread of the first block
   if (blockIdx.x == 0 && threadIdx.x < p.total - static_cast<long long>(n_vec) * kVec)
-    one_element<T, kQ, kCL>(p, static_cast<long long>(n_vec) * kVec + threadIdx.x);
+    one_element<T, kQ, kCL, kRes>(p, static_cast<long long>(n_vec) * kVec + threadIdx.x);
 }
 
-template <typename T, bool kQ, bool kCL, int kAct>
+template <typename T, bool kQ, bool kCL, int kAct, bool kRes = false>
 void launch_vec(const Params& p, cudaStream_t s) {
   const unsigned long long n_vec = p.total / kVec, per_block = kThreads * kSub;
   const unsigned blocks = static_cast<unsigned>((n_vec + per_block - 1) / per_block);
-  conv_epilogue_vec<T, kQ, kCL, kAct><<<blocks > 0 ? blocks : 1, kThreads, 0, s>>>(p);
+  conv_epilogue_vec<T, kQ, kCL, kAct, kRes><<<blocks > 0 ? blocks : 1, kThreads, 0, s>>>(p);
+}
+
+template <typename T, bool kQ, bool kCL, bool kRes = false>
+void launch_loop(const Params& p, cudaStream_t s) {
+  const long long want = (p.total + kThreads - 1) / kThreads;
+  conv_epilogue_loop<T, kQ, kCL, kRes><<<static_cast<unsigned>(want < 65536 ? want : 65536), kThreads, 0, s>>>(p);
 }
 
 template <typename T, bool kQ, bool kCL>
 cudaError_t launch(const Params& p, bool vec, cudaStream_t s) {
   if (!vec) {
-    const long long want = (p.total + kThreads - 1) / kThreads;
-    conv_epilogue_loop<T, kQ, kCL><<<static_cast<unsigned>(want < 65536 ? want : 65536), kThreads, 0, s>>>(p);
+    launch_loop<T, kQ, kCL>(p, s);
   } else if (p.act == kNone) {
     launch_vec<T, kQ, kCL, kNone>(p, s);
   } else if (p.act == kRelu) {
@@ -399,8 +446,19 @@ cudaError_t launch(const Params& p, bool vec, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// The residual form: a bias, no activation, output in y's dtype.
+template <typename T, bool kCL>
+cudaError_t launch_residual(const Params& p, bool vec, cudaStream_t s) {
+  if (vec)
+    launch_vec<T, false, kCL, kNone, true>(p, s);
+  else
+    launch_loop<T, false, kCL, true>(p, s);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_dtype(const Params& p, bool vec, bool cl, cudaStream_t s) {
+  if (p.residual) return cl ? launch_residual<T, true>(p, vec, s) : launch_residual<T, false>(p, vec, s);
   const bool q = p.q_scale != nullptr;
   if (q) return cl ? launch<T, true, true>(p, vec, s) : launch<T, true, false>(p, vec, s);
   return cl ? launch<T, false, true>(p, vec, s) : launch<T, false, false>(p, vec, s);
@@ -414,42 +472,54 @@ bool aligned(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 
 // thread's current device for the launch, then restored), without
 // synchronizing. y: (n, c, h, w) with hw = h *
 // w, NCHW-contiguous (channels_last = 0) or NHWC in memory (1), bfloat16
-// (bf16 = 1) or float32. One of the two forms: bias (c,) in y's dtype with
-// act 0 (none); or bn_mul and bn_add (c,), float32, with act 1 relu, 2 tanh
-// or 3 mish. out: y's dtype and layout where q_scale is null, else int8
+// (bf16 = 1) or float32. One of three forms: bias (c,) in y's dtype with
+// act 0 (none); bn_mul and bn_add (c,), float32, with act 1 relu, 2 tanh
+// or 3 mish; or bias with act 0 and a residual of y's dtype and layout,
+// no q_scale. out: y's dtype and layout where q_scale is null, else int8
 // (n, h, w, c) quantized at *q_scale. Returns cudaGetLastError() after the
-// launch, or the error that kept it from launching (0 = success).
+// launches, or the error that kept one from launching (0 = success).
 extern "C" int conv_epilogue(const void* y, void* out, const void* bias, const float* bn_mul, const float* bn_add,
-                             const float* q_scale, long long n, int c, long long hw, int channels_last, int bf16,
-                             int act, int device, void* stream) {
+                             const float* q_scale, const void* residual, long long n, int c, long long hw,
+                             int channels_last, int bf16, int act, int device, void* stream) {
   if (n < 0 || c < 0 || hw < 0 || act < kNone || act > kMish) return static_cast<int>(cudaErrorInvalidValue);
   const bool bn = bn_mul != nullptr && bn_add != nullptr;
   if (bias != nullptr ? bn_mul != nullptr || bn_add != nullptr || act != kNone : !bn || act == kNone)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (residual != nullptr && (bias == nullptr || q_scale != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
-  p.y = y;
-  p.out = out;
   p.bias = bias;
   p.bn_mul = bn_mul;
   p.bn_add = bn_add;
   p.q_scale = q_scale;
-  p.total = n * c * hw;
   p.hw = hw;
   p.c = c;
   p.c_mask = c > 0 && (c & (c - 1)) == 0 ? static_cast<unsigned>(c - 1) : 0;
   p.act = act;
   p.cl_shared = c > 0 && (kThreads * kVec) % c == 0;
-  if (p.total == 0) return 0;
+  const long long per_image = static_cast<long long>(c) * hw;
+  if (n * per_image == 0) return 0;
   const bool cl = channels_last != 0;
   const bool params_aligned = bn ? aligned(bn_mul) && aligned(bn_add) : aligned(bias);
-  const bool vec = p.total < (1LL << 32) && aligned(y) && aligned(out) &&
-                   (cl ? c % kVec == 0 && params_aligned : hw >= kVec);
+  // runs of whole images below 2^32 elements each, for the vector route's
+  // 32-bit indices; an image of 2^32 or more takes the loop in one launch
+  const long long run = per_image < (1LL << 32) ? ((1LL << 32) - 1) / per_image : n;
+  const long long y_size = bf16 ? 2 : 4, out_size = q_scale ? 1 : y_size;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int prev = device;
   cudaError_t err = cudaGetDevice(&prev);
   if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = bf16 ? launch_dtype<__nv_bfloat16>(p, vec, cl, s) : launch_dtype<float>(p, vec, cl, s);
+  for (long long n0 = 0; n0 < n && err == cudaSuccess; n0 += run) {
+    const long long at = n0 * per_image;
+    p.y = static_cast<const char*>(y) + at * y_size;
+    p.out = static_cast<char*>(out) + at * out_size;
+    p.residual = residual ? static_cast<const char*>(residual) + at * y_size : nullptr;
+    p.total = (n - n0 < run ? n - n0 : run) * per_image;
+    const bool vec = p.total < (1LL << 32) && aligned(p.y) && aligned(p.out) &&
+                     (residual == nullptr || aligned(p.residual)) &&
+                     (cl ? c % kVec == 0 && params_aligned : hw >= kVec);
+    err = bf16 ? launch_dtype<__nv_bfloat16>(p, vec, cl, s) : launch_dtype<float>(p, vec, cl, s);
+  }
   if (prev != device) cudaSetDevice(prev);
   return static_cast<int>(err);
 }

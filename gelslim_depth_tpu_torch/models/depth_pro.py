@@ -65,10 +65,15 @@ pyramid in float32 on the float32 input, each level rounded once as it is
 cut into tiles; the encoders as ``DinoEncoder`` runs them
 (``residual_layer_norm``, cuDNN's SDPA for bfloat16 on CUDA); the 1x1
 projections as matrix products on the merged tokens, whose (N, h, w, C)
-layout is channels-last NCHW, so the decoder runs channels-last; a conv
-whose bias feeds a ReLU (each residual unit's first, the head's 3x3 to
-``head_features``) without its bias, ``conv_epilogue`` finishing it.
-float32 runs with TF32 off.
+layout is channels-last NCHW, so the decoder runs channels-last; the
+convs' biases as the DPT head's (``models/dpt.py``): where a bias feeds a
+ReLU (each residual unit's first conv, the head's 3x3 to
+``head_features``) the conv without it and ``conv_epilogue`` with the
+ReLU; on CUDA every other conv with a bias without it too, one
+``conv_epilogue`` adding it (``_conv``), with the unit's skip add at each
+residual unit's second conv, alone at the rest (``upsample_lowres``, each
+fusion block's ``out_conv``, the head's 3x3, transposed conv and last
+1x1). float32 runs with TF32 off.
 
 Spans (``utils.profiling.span``): ``depth_pro.pyramid`` (the two
 downsamples and the split), ``depth_pro.patch_encoder`` and
@@ -91,7 +96,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gelslim_depth_tpu_torch.models.dpt import (
-    DinoEncoder, DPTConfig, FeatureFusionBlock, ResidualConvUnit, _bias_relu, _epilogue_vectors, _no_tf32,
+    DinoEncoder, DPTConfig, FeatureFusionBlock, ResidualConvUnit, _bias_relu, _conv, _epilogue_vectors, _no_tf32,
 )
 from gelslim_depth_tpu_torch.utils.profiling import span
 
@@ -318,7 +323,7 @@ class DepthPro(nn.Module):
                    _project_upsample(enc.upsample0, x0), _project_upsample(enc.upsample1, x1)]
             x2 = _project_upsample(enc.upsample2, x2)
             lo = enc.upsample_lowres
-            glob = F.conv_transpose2d(glob.view(n, *grid).permute(0, 3, 1, 2), lo.weight, lo.bias, stride=2)
+            glob = _conv(F.conv_transpose2d, glob.view(n, *grid).permute(0, 3, 1, 2), lo.weight, lo.bias, stride=2)
             both = torch.cat([x2.permute(0, 2, 3, 1), glob.permute(0, 2, 3, 1)], dim=-1)
             fuse = enc.fuse_lowres
             out.append(F.linear(both, fuse.weight.flatten(1), fuse.bias).permute(0, 3, 1, 2))
@@ -338,11 +343,11 @@ class DepthPro(nn.Module):
                     del e
             with span("depth_pro.head"):
                 h = self.head
-                y = F.conv2d(f, h[0].weight, h[0].bias, padding=1)
+                y = _conv(F.conv2d, f, h[0].weight, h[0].bias, padding=1)
                 del f
-                y = F.conv_transpose2d(y, h[1].weight, h[1].bias, stride=2)
+                y = _conv(F.conv_transpose2d, y, h[1].weight, h[1].bias, stride=2)
                 y = _bias_relu(F.conv2d(y, h[2].weight, padding=1), self.head_out_scale, self.head_out_shift)
-                return F.conv2d(y, h[4].weight, h[4].bias).float()
+                return _conv(F.conv2d, y, h[4].weight, h[4].bias).float()
 
 
 def depth_pro_state_shapes(cfg: DepthProConfig):

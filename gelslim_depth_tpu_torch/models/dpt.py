@@ -39,11 +39,18 @@ the card that writes the sum, bit for bit ``addcmul``'s, and its
 LayerNorm (statistics summed in the kernel's own order). A head conv whose
 bias feeds a ReLU (the first conv of each residual unit, the
 ``head_features``-wide output conv) runs without its bias, and
-``conv_epilogue``'s BatchNorm form finishes it (scale 1, shift the bias
-in float32, ``relu``), rounded once. The head runs channels-last: the
-tokens already are. Its five bilinear resizes (``align_corners=True``)
-are ``bilinear_resize``, one hand-written kernel a resize on the card,
-bit for bit the library's ``F.interpolate``. float32 runs with TF32 off.
+``conv_epilogue``'s BatchNorm form finishes it (scale 1, shift the bias in
+float32, ``relu``), rounded once. On CUDA every other head conv with a bias
+runs without it too, so no bias is left to aten's strided broadcast add
+after cuDNN's conv (``_conv``): at the second conv of each residual unit
+``conv_epilogue``'s residual form adds the bias and the unit's skip, each
+rounded as aten's two adds; at the rest (the reassembly's resize convs,
+each fusion block's ``out_conv``, ``output_conv1``, the last 1x1) its bias
+form. On the CPU those convs keep their bias, which the CPU's conv adds
+before it rounds. The head runs channels-last: the tokens already are.
+Its five bilinear resizes (``align_corners=True``) are
+``bilinear_resize``, one hand-written kernel a resize on the card, bit for
+bit the library's ``F.interpolate``. float32 runs with TF32 off.
 
 Temporal head (``DPTConfig.num_frames`` > 0): Video Depth Anything's
 ``DPTHeadTemporal`` (https://github.com/DepthAnything/Video-Depth-Anything:
@@ -214,6 +221,29 @@ def _epilogue_vectors(module: nn.Module, name: str, conv: nn.Conv2d) -> None:
         module.register_buffer(f"{name}_shift", shift, persistent=False)
 
 
+def _epilogue_bias(x: torch.Tensor) -> bool:
+    """Whether a head conv on x runs without its bias, one ``conv_epilogue``
+    adding it: on CUDA, where PyTorch runs a conv with a bias as cuDNN's
+    conv, then its own bias add (aten's strided kernel, at ~38% of its byte
+    bound on a channels-last map), rounding to the compute dtype between
+    the two as the kernel does. Not on the CPU, whose conv adds its bias in
+    float32 before it rounds: a bfloat16 add after it would round twice."""
+    return x.is_cuda
+
+
+def _conv(fn, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, residual: Optional[torch.Tensor] = None,
+          **kw) -> torch.Tensor:
+    """``fn(x, weight, bias, **kw)`` (``F.conv2d`` or ``F.conv_transpose2d``),
+    plus ``residual`` where one is given: where ``_epilogue_bias``, the conv
+    without its bias and one ``conv_epilogue`` (its bias form, or its
+    residual form: the bias add, then the skip add, each rounded to the
+    compute dtype); else the conv with its bias and aten's add."""
+    if _epilogue_bias(x):
+        return conv_epilogue(fn(x, weight, **kw), bias=bias, residual=residual)
+    y = fn(x, weight, bias, **kw)
+    return y if residual is None else y + residual
+
+
 def _bias_relu(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     """relu(y + bias) of a conv run without its bias, in float32 and rounded
     to y's dtype once: one ``conv_epilogue`` in its BatchNorm form."""
@@ -354,7 +384,7 @@ class ResidualConvUnit(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = _bias_relu(F.conv2d(torch.relu(x), self.conv1.weight, padding=1), self.conv1_scale, self.conv1_shift)
-        return F.conv2d(h, self.conv2.weight, self.conv2.bias, padding=1) + x
+        return _conv(F.conv2d, h, self.conv2.weight, self.conv2.bias, residual=x, padding=1)
 
 
 class FeatureFusionBlock(nn.Module):
@@ -379,7 +409,7 @@ class FeatureFusionBlock(nn.Module):
             x = F.conv_transpose2d(x, self.deconv.weight, stride=2)
         elif size is not None:
             x = bilinear_resize(x, size)
-        return F.conv2d(x, self.out_conv.weight, self.out_conv.bias)
+        return _conv(F.conv2d, x, self.out_conv.weight, self.out_conv.bias)
 
 
 class Scratch(nn.Module):
@@ -593,9 +623,9 @@ class DPTHead(nn.Module):
         for i, (t, proj, resize) in enumerate(zip(hooks, self.projects, self.resize_layers), 1):
             y = F.linear(t, proj.weight.flatten(1), proj.bias).view(n, gh, gw, -1).permute(0, 3, 1, 2)
             if isinstance(resize, nn.ConvTranspose2d):
-                y = F.conv_transpose2d(y, resize.weight, resize.bias, stride=resize.stride)
+                y = _conv(F.conv_transpose2d, y, resize.weight, resize.bias, stride=resize.stride)
             elif isinstance(resize, nn.Conv2d):
-                y = F.conv2d(y, resize.weight, resize.bias, stride=2, padding=1)
+                y = _conv(F.conv2d, y, resize.weight, resize.bias, stride=2, padding=1)
             if self.cfg.temporal and i >= 3:
                 y = self._temporal(i - 3, f"layer{i}", y, streams)
             out.append(F.conv2d(y, getattr(self.scratch, f"layer{i}_rn").weight, padding=1))
@@ -620,10 +650,10 @@ class DPTHead(nn.Module):
         with span("dpt.output"):
             p = self.cfg.patch_size
             gh, gw = self.cfg.grid
-            y = F.conv2d(path, s.output_conv1.weight, s.output_conv1.bias, padding=1)
+            y = _conv(F.conv2d, path, s.output_conv1.weight, s.output_conv1.bias, padding=1)
             y = bilinear_resize(y, (gh * p, gw * p))
             y = _bias_relu(F.conv2d(y, s.output_conv2[0].weight, padding=1), s.output_scale, s.output_shift)
-            y = F.conv2d(y, s.output_conv2[2].weight, s.output_conv2[2].bias)
+            y = _conv(F.conv2d, y, s.output_conv2[2].weight, s.output_conv2[2].bias)
             return y.float()
 
 

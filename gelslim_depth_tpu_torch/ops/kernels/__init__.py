@@ -6,8 +6,10 @@
   of gelslim_depth_tpu/models/quantize.py:164 and :136)
 - conv_epilogue.conv_epilogue  (replaces the elementwise passes XLA fuses
   into the float convs' epilogues: gelslim_depth_tpu/models/unet.py:197,
-  :229 and :275, quantize.py:156); the module shares the function's name, so it
-  is imported from the module, not from here
+  :229 and :275, quantize.py:156; and, with no TPU counterpart, the
+  transformers' heads' conv bias adds and residual units' skip adds); the
+  module shares the function's name, so it is imported from the module,
+  not from here
 - bilinear_resize.bilinear_resize  (replaces no TPU kernel: the DPT head's
   bilinear resizes with align_corners=True, in place of aten's; imported
   from its module, as conv_epilogue is)

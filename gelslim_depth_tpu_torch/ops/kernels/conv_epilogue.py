@@ -1,6 +1,7 @@
-"""The epilogue of a float conv in one pass: the upconv's bias or the folded
+"""The epilogue of a float conv in one pass: the conv's bias or the folded
 eval BatchNorm, the activation, the rounding to the compute dtype and,
-where an int8 conv reads the result, its int8 quantization.
+where an int8 conv reads the result, its int8 quantization; or the bias and
+a residual unit's skip add.
 
 ``conv_epilogue`` checks its arguments and calls the custom op
 ``torch.ops.gelslim.conv_epilogue``, whose CUDA implementation launches
@@ -17,12 +18,19 @@ a one-frame call.
 
 The kernel reads ``y`` as it comes from the conv, NCHW-contiguous or
 channels-last, and returns the compute-dtype result in the same layout, or
-the int8 one NHWC. It takes the two forms the U-Net calls: an upconv's
+the int8 one NHWC. It takes three forms. The U-Net calls two: an upconv's
 bias, in y's dtype, with no activation; a BatchNorm's float32 vectors with
-its activation. It rounds where the chain rounds (a bfloat16 bias add in
-float32, then to bfloat16; the BatchNorm affine and the activation in
-float32, then the cast) and quantizes as ``quant_act`` does, so the two
-routes agree bit for bit.
+its activation. On the card the transformers' heads (``models/dpt.py``,
+``models/depth_pro.py``), whose convs run on cuDNN without their bias,
+call the bias form at every conv that has a bias but the residual units'
+second, and there the residual form: the bias, then the unit's skip add of
+``residual``, a tensor of y's shape, dtype and layout, each add rounded to
+y's dtype as aten's two bf16 adds round (``round(round(y + bias) +
+residual)``; one read of y and of the residual and one write, against the
+three passes of aten's bias add and skip add). It rounds where the chain
+rounds (a bfloat16 bias add in float32, then to bfloat16; the BatchNorm
+affine and the activation in float32, then the cast) and quantizes as
+``quant_act`` does, so the two routes agree bit for bit.
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ def bind(lib: ctypes.CDLL):
     """The C entry of a built csrc/conv_epilogue.cu, typed."""
     fn = lib.conv_epilogue
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p] * 6 + [ll, i, ll, i, i, i, i, p]
+    fn.argtypes = [p] * 7 + [ll, i, ll, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -59,13 +67,23 @@ def channels_last(y: torch.Tensor) -> bool:
     return not y.is_contiguous() and y.is_contiguous(memory_format=torch.channels_last)
 
 
-def _check(y, bias, bn_mul, bn_add, act, q_scale):
+def _check(y, bias, bn_mul, bn_add, act, q_scale, residual):
     if y.ndim != 4 or y.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"y must be a float32 or bfloat16 (N, C, H, W) tensor, got {y.dtype} {tuple(y.shape)}")
     if not (y.is_contiguous() or y.is_contiguous(memory_format=torch.channels_last)):
         raise ValueError("y must be NCHW-contiguous or channels-last")
     if act not in ACTIVATIONS:
         raise ValueError(f"act {act!r}: expected one of {ACTIVATIONS}")
+    if residual is not None:
+        if bias is None or bn_mul is not None or bn_add is not None or act != "none":
+            raise ValueError("a residual takes a bias, and no BatchNorm vectors or activation")
+        if q_scale is not None:
+            raise ValueError("a residual takes no q_scale: its sum is stored in y's dtype")
+        order = torch.channels_last if channels_last(y) else torch.contiguous_format
+        if (residual.shape != y.shape or residual.dtype != y.dtype or residual.device != y.device
+                or not residual.is_contiguous(memory_format=order)):
+            raise ValueError(f"the residual must be a {y.dtype} tensor of y's shape {tuple(y.shape)} on {y.device}, "
+                             f"laid out as y ({'channels-last' if order is torch.channels_last else 'NCHW'})")
     if bias is not None and bn_mul is None and bn_add is None:
         if act != "none":
             raise ValueError(f"a bias takes no activation, got act {act!r}")
@@ -92,27 +110,31 @@ def conv_epilogue(
     bn_add: Optional[torch.Tensor] = None,  # float32, C elements
     act: str = "none",
     q_scale: Optional[torch.Tensor] = None,  # float32, one element
+    residual: Optional[torch.Tensor] = None,  # y's shape, dtype and layout
 ) -> torch.Tensor:
-    """One of the two epilogues the U-Net's float convs have: an upconv's
-    ``y + bias`` (``act`` "none"), or a DoubleConv conv's ``act(y * bn_mul
-    + bn_add)`` (``act`` relu, tanh or mish); rounded to y's dtype and
-    returned in y's dtype and layout, or with ``q_scale`` quantized
-    ``clamp(round(v / q_scale), -127, 127)`` into an int8 NHWC ``(N, H, W,
-    C)`` tensor (``conv_epilogue_reference`` spells it out).
+    """A conv's ``y + bias`` (``act`` "none"), or a DoubleConv conv's
+    ``act(y * bn_mul + bn_add)`` (``act`` relu, tanh or mish); rounded to
+    y's dtype and returned in y's dtype and layout, or with ``q_scale``
+    quantized ``clamp(round(v / q_scale), -127, 127)`` into an int8 NHWC
+    ``(N, H, W, C)`` tensor. With ``residual`` (a bias, no activation, no
+    ``q_scale``): ``(y + bias) + residual``, each add rounded to y's dtype
+    (``conv_epilogue_reference`` spells it out).
 
     On CUDA the op allocates the output with ``torch.empty`` and launches
-    the kernel on the current stream without synchronizing; each launch
-    adds one to ``conv_epilogue.launches`` (an empty y launches nothing).
-    On the CPU it computes ``conv_epilogue_reference``. A tensor subclass
-    (a fake tensor under ``torch.export``) or a compiling graph goes
-    through the op's dispatch; a plain CUDA tensor launches at once."""
-    _check(y, bias, bn_mul, bn_add, act, q_scale)
+    the kernel on the current stream without synchronizing; each call
+    adds one to ``conv_epilogue.launches``, and in the residual form one
+    to ``conv_epilogue.residual_launches`` too (an empty y launches
+    nothing). On the CPU it computes ``conv_epilogue_reference``. A tensor
+    subclass (a fake tensor under ``torch.export``) or a compiling graph
+    goes through the op's dispatch; a plain CUDA tensor launches at once."""
+    _check(y, bias, bn_mul, bn_add, act, q_scale, residual)
     if y.is_cuda and type(y) is torch.Tensor and not torch.compiler.is_compiling():
-        return _launch(y, bias, bn_mul, bn_add, act, q_scale)
-    return torch.ops.gelslim.conv_epilogue(y, bias, bn_mul, bn_add, act, q_scale)
+        return _launch(y, bias, bn_mul, bn_add, act, q_scale, residual)
+    return torch.ops.gelslim.conv_epilogue(y, bias, bn_mul, bn_add, act, q_scale, residual)
 
 
 conv_epilogue.launches = 0
+conv_epilogue.residual_launches = 0
 
 
 def _out(y: torch.Tensor, q_scale: Optional[torch.Tensor]) -> torch.Tensor:
@@ -124,49 +146,58 @@ def _out(y: torch.Tensor, q_scale: Optional[torch.Tensor]) -> torch.Tensor:
 
 @torch.library.custom_op("gelslim::conv_epilogue", mutates_args=(), device_types="cuda")
 def _op(y: torch.Tensor, bias: Optional[torch.Tensor], bn_mul: Optional[torch.Tensor],
-        bn_add: Optional[torch.Tensor], act: str, q_scale: Optional[torch.Tensor]) -> torch.Tensor:
+        bn_add: Optional[torch.Tensor], act: str, q_scale: Optional[torch.Tensor],
+        residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel, on CUDA tensors that the public wrapper has checked."""
-    return _launch(y, bias, bn_mul, bn_add, act, q_scale)
+    return _launch(y, bias, bn_mul, bn_add, act, q_scale, residual)
 
 
-def _launch(y, bias, bn_mul, bn_add, act, q_scale):
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _launch(y, bias, bn_mul, bn_add, act, q_scale, residual):
     out = _out(y, q_scale)
     if out.numel():
         n, c, h, w = y.shape
         dev = y.get_device()
         err = _kernel_fn()(
-            y.data_ptr(), out.data_ptr(), None if bias is None else bias.data_ptr(),
-            None if bn_mul is None else bn_mul.data_ptr(), None if bn_add is None else bn_add.data_ptr(),
-            None if q_scale is None else q_scale.data_ptr(), n, c, h * w, channels_last(y),
-            y.dtype == torch.bfloat16, ACTIVATIONS.index(act), dev, torch._C._cuda_getCurrentRawStream(dev),
+            y.data_ptr(), out.data_ptr(), _ptr(bias), _ptr(bn_mul), _ptr(bn_add), _ptr(q_scale), _ptr(residual),
+            n, c, h * w, channels_last(y), y.dtype == torch.bfloat16, ACTIVATIONS.index(act), dev,
+            torch._C._cuda_getCurrentRawStream(dev),
         )
         if err != 0:
             raise RuntimeError(f"conv_epilogue kernel launch failed: CUDA error {err}")
         conv_epilogue.launches += 1
+        conv_epilogue.residual_launches += residual is not None
     return out
 
 
 @_op.register_kernel("cpu")
-def _op_cpu(y, bias, bn_mul, bn_add, act, q_scale):
-    return conv_epilogue_reference(y, bias=bias, bn_mul=bn_mul, bn_add=bn_add, act=act, q_scale=q_scale)
+def _op_cpu(y, bias, bn_mul, bn_add, act, q_scale, residual=None):
+    return conv_epilogue_reference(y, bias=bias, bn_mul=bn_mul, bn_add=bn_add, act=act, q_scale=q_scale,
+                                   residual=residual)
 
 
 @_op.register_fake
-def _op_fake(y, bias, bn_mul, bn_add, act, q_scale):
+def _op_fake(y, bias, bn_mul, bn_add, act, q_scale, residual=None):
     return _out(y, q_scale)
 
 
-def conv_epilogue_reference(y, *, bias=None, bn_mul=None, bn_add=None, act="none", q_scale=None):
+def conv_epilogue_reference(y, *, bias=None, bn_mul=None, bn_add=None, act="none", q_scale=None, residual=None):
     """Plain PyTorch composition of the same function (the kernel's twin),
-    the U-Net's chain of ops: an upconv's ``y + bias``, or a DoubleConv's
-    ``act(y * bn_mul + bn_add)`` cast to y's dtype, then ``quant_act`` of
-    the NHWC result where ``q_scale`` is given."""
-    _check(y, bias, bn_mul, bn_add, act, q_scale)
+    the chain of ops it replaces: a conv's ``y + bias``, then ``+
+    residual`` where one is given, or a DoubleConv's ``act(y * bn_mul +
+    bn_add)`` cast to y's dtype, then ``quant_act`` of the NHWC result
+    where ``q_scale`` is given."""
+    _check(y, bias, bn_mul, bn_add, act, q_scale, residual)
     c = (1, -1, 1, 1)
     if bias is not None:
         v = y + bias.view(c)
     else:
         v = activation_fn(act)(y * bn_mul.view(c) + bn_add.view(c)).to(y.dtype)
+    if residual is not None:
+        return v + residual
     if q_scale is None:
         return v
     return quant_act(v.permute(0, 2, 3, 1).contiguous(), q_scale)

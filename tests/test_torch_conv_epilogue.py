@@ -157,6 +157,75 @@ def test_rejects_bad_arguments():
     assert ce.conv_epilogue(y[:0], bias=v, q_scale=torch.ones(1)).shape == (0, 3, 3, 4)
 
 
+# -- the residual form (the transformers' residual units) ---------------------------
+
+
+def _residual_inputs(g, shape, dtype, layout, device="cpu"):
+    """y and a bias as ``_inputs`` makes them, and a residual of y's shape,
+    dtype and layout."""
+    y, kw = _inputs(g, shape, dtype, layout, "bias", device)
+    x = (torch.randn(shape, generator=g, device=device) * 3).to(dtype)
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    return y, kw["bias"], x
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+def test_cpu_residual_form_equals_aten_chain(layout, dtype):
+    """A residual unit's second conv's bias add, then its skip add: the
+    reference, and the op (which computes it on the CPU), equal aten's two
+    adds in y's dtype and layout bit for bit; in bfloat16 that is two
+    roundings, which one rounded float32 sum would not give."""
+    g = torch.Generator().manual_seed(zlib.crc32(f"residual {layout} {dtype}".encode()))
+    y, bias, x = _residual_inputs(g, (2, 16, 7, 13), dtype, layout)
+    want = (y + bias.view(1, -1, 1, 1)) + x
+    for got in (ce.conv_epilogue_reference(y, bias=bias, residual=x), ce.conv_epilogue(y, bias=bias, residual=x)):
+        assert got.dtype == dtype and got.stride() == y.stride() == want.stride()
+        assert torch.equal(got, want)
+    if dtype == torch.bfloat16:
+        assert not torch.equal(want, (y.float() + bias.float().view(1, -1, 1, 1) + x.float()).to(dtype))
+
+
+RESIDUAL_REFUSALS = {
+    "shape": ("the residual must be", lambda y, b, x: dict(bias=b, residual=x[:, :, :, :-1])),
+    "dtype": ("the residual must be", lambda y, b, x: dict(bias=b, residual=x.float())),
+    "layout": ("laid out as y", lambda y, b, x: dict(bias=b, residual=x.contiguous())),
+    "bn vectors": ("a residual takes a bias", lambda y, b, x: dict(
+        bn_mul=torch.ones(8), bn_add=torch.zeros(8), act="relu", residual=x)),
+    "activation": ("a residual takes a bias", lambda y, b, x: dict(bias=b, act="relu", residual=x)),
+    "q_scale": ("no q_scale", lambda y, b, x: dict(bias=b, q_scale=torch.ones(1), residual=x)),
+}
+
+
+@pytest.mark.parametrize("case", list(RESIDUAL_REFUSALS))
+def test_residual_form_rejects_bad_arguments(case):
+    """A residual of another shape, dtype or layout than y's, or beside
+    BatchNorm vectors, an activation or an int8 output, raises."""
+    y = torch.zeros(2, 8, 5, 6, dtype=torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    match, kw = RESIDUAL_REFUSALS[case]
+    with pytest.raises(ValueError, match=match):
+        ce.conv_epilogue(y, **kw(y, torch.zeros(8, dtype=torch.bfloat16), torch.zeros_like(y)))
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+def test_fake_agrees_with_the_op_on_the_residual_form(layout):
+    """The op's fake (what ``torch.export`` traces) gives the output's
+    shape, dtype and strides as the op does; ``opcheck`` holds the op's
+    registrations to one another."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    g = torch.Generator().manual_seed(7)
+    y, bias, x = _residual_inputs(g, (2, 8, 5, 6), torch.bfloat16, layout)
+    args = (y, bias, None, None, "none", None, x)
+    real = torch.ops.gelslim.conv_epilogue(*args)
+    with FakeTensorMode() as mode:
+        fake = torch.ops.gelslim.conv_epilogue(*(mode.from_tensor(a) if torch.is_tensor(a) else a for a in args))
+    assert (fake.shape, fake.dtype, fake.stride()) == (real.shape, real.dtype, real.stride()) == (
+        y.shape, y.dtype, y.stride())
+    torch.library.opcheck(torch.ops.gelslim.conv_epilogue.default, args)
+
+
 # -- the U-Net's two serving graphs on the CPU -------------------------------------
 
 
@@ -352,6 +421,65 @@ def test_cuda_conv_epilogue_matches_twin(n, c, h, w, layout, dtype, mode, act, i
     assert ce.conv_epilogue.launches == before + 1
     assert got.dtype == want.dtype and got.shape == want.shape and got.stride() == want.stride()
     assert _same(got, want)
+
+
+# (N, C, H, W, layout, dtype) of the residual form: the DPT's and Depth
+# Pro's residual units (bf16, channels-last), then the layouts, dtypes and
+# sizes they do not reach
+RESIDUAL_CUDA_CASES = [
+    (128, 256, 22, 30, "channels_last", torch.bfloat16),  # the DPT's refinenet4
+    (16, 256, 48, 48, "channels_last", torch.bfloat16),  # Depth Pro's level 4
+    (2, 256, 44, 60, "nchw", torch.bfloat16),
+    (2, 64, 17, 23, "channels_last", torch.float32),
+    (2, 64, 17, 23, "nchw", torch.float32),
+    (2, 12, 9, 11, "channels_last", torch.bfloat16),  # C % 8: one element a thread
+    (3, 5, 7, 9, "nchw", torch.bfloat16),  # a tail of 1
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,h,w,layout,dtype", RESIDUAL_CUDA_CASES)
+def test_cuda_residual_form_matches_aten_chain(n, c, h, w, layout, dtype):
+    """The residual form on the card against aten's bias add and skip add:
+    one launch, counted as a residual one, y's layout, bit for bit (NaN
+    where aten has NaN)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(n + c + h + w)
+    y, bias, x = _residual_inputs(g, (n, c, h, w), dtype, layout, device="cuda")
+    flat = y.view(-1) if y.is_contiguous() else y.permute(0, 2, 3, 1).reshape(-1)
+    flat[[5, 17, 40]] = torch.tensor([float("nan"), float("inf"), -float("inf")], device="cuda").to(dtype)
+    before = ce.conv_epilogue.launches, ce.conv_epilogue.residual_launches
+    got = ce.conv_epilogue(y, bias=bias, residual=x)
+    want = (y + bias.view(1, -1, 1, 1)) + x
+    torch.cuda.synchronize()
+    assert (ce.conv_epilogue.launches, ce.conv_epilogue.residual_launches) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == want.dtype and got.stride() == want.stride()
+    assert _same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+def test_cuda_epilogue_past_2_32_elements(residual):
+    """Depth Pro's transposed conv to 1536 x 1536 x 128 is 4.8 G elements
+    at 16 images: the kernel's 32-bit indices take it in runs of whole
+    images. At 15 images (4.5 G, runs of 14 and 1), bf16 channels-last,
+    the bias form and the residual form equal aten's adds bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    shape = (15, 128, 1536, 1536)
+    assert torch.Size(shape).numel() > 2 ** 32
+    g = torch.Generator(device="cuda").manual_seed(11)
+    y = torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    bias = torch.randn(128, generator=g, device="cuda", dtype=torch.bfloat16)
+    x = torch.randn_like(y) if residual else None
+    got = ce.conv_epilogue(y, bias=bias, residual=x)
+    want = y.add_(bias.view(1, -1, 1, 1))  # y is not read again
+    if residual:
+        want.add_(x)
+    torch.cuda.synchronize()
+    assert got.stride() == want.stride() and torch.equal(got, want)
 
 
 def _flagship_predictors():

@@ -28,12 +28,16 @@ from gelslim_depth_tpu_torch import ops
 from gelslim_depth_tpu_torch.config import GelslimConfig
 from gelslim_depth_tpu_torch.export import export_predictor
 from gelslim_depth_tpu_torch.inference import Predictor, StreamingEngine, _preprocess, dual_frames_to_fingers
+from gelslim_depth_tpu_torch.models import dpt as dpt_module
 from gelslim_depth_tpu_torch.models.depth_pro import (
     SPLITS, DepthPro, DepthProConfig, depth_pro_state_shapes, merge, split_into,
 )
-from gelslim_depth_tpu_torch.models.dpt import DPT
+from gelslim_depth_tpu_torch.models.dpt import DPT, _bias_relu
+from gelslim_depth_tpu_torch.ops.kernels import conv_epilogue as ce
 from gelslim_depth_tpu_torch.utils import profiling
-from tests.torch_port_helpers import torch_threads
+from tests.torch_port_helpers import (
+    card_route, conv_calls, previous_fusion_block, spy_epilogues, torch_threads,
+)
 
 PUBLISHED = harness.load_json(os.path.join(harness.ROOT, "benchmark", "configs", "depth_pro_vitl16_bf16.json"))
 SMALL = {**PUBLISHED,
@@ -276,3 +280,102 @@ def test_config_round_trip(bundle, tmp_path):
     assert GelslimConfig().post_interp_method == "area" and GelslimConfig().depth_pro is None
     with pytest.raises(ValueError, match="not square of four tiles"):
         dataclasses.replace(cfg.depth_pro_config(), image_size=(512, 500)).tile
+
+
+# -- the decoder's and head's conv biases in conv_epilogue ---------------------------
+
+
+def _previous_head(net, f):
+    """The head as it ran before its convs' biases went into
+    ``conv_epilogue``: each conv with its bias."""
+    h = net.head
+    y = F.conv2d(f, h[0].weight, h[0].bias, padding=1)
+    y = F.conv_transpose2d(y, h[1].weight, h[1].bias, stride=2)
+    y = _bias_relu(F.conv2d(y, h[2].weight, padding=1), net.head_out_scale, net.head_out_shift)
+    return F.conv2d(y, h[4].weight, h[4].bias).float()
+
+
+def _forward_with_fusions(net, x):
+    """net(x), and each fusion block's (inputs, output), level 4 first."""
+    calls = []
+    hooks = [m.register_forward_hook(lambda m, args, out: calls.append((m, args, out)))
+             for m in net.decoder.fusions]
+    try:
+        out = net(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return out, calls
+
+
+# as the DPT's (test_torch_dpt.PREVIOUS_ATOL): float32 on the CPU, whose
+# conv may add its bias inside the conv
+PREVIOUS_ATOL = 2e-6
+
+
+def test_decoder_and_head_equal_the_previous_composition(bundle, monkeypatch):
+    """With the biases in ``conv_epilogue``, the card's route, each fusion
+    block (levels 1-4 with the transposed conv) and the head give, on the
+    same inputs, what their convs with their biases and the adds after
+    them gave."""
+    card_route(monkeypatch)
+    net = port(bundle)
+    with torch.no_grad():
+        got, fusions = _forward_with_fusions(net, bundle["x"])
+        assert [m for m, _, _ in fusions] == [net.decoder.fusions[i] for i in range(4, -1, -1)]
+        for m, args, out in fusions:
+            want = previous_fusion_block(m, *args)
+            assert out.stride() == want.stride()
+            torch.testing.assert_close(out, want, rtol=0, atol=PREVIOUS_ATOL)
+        want = _previous_head(net, fusions[-1][2])
+    assert rms(want) > 100 * PREVIOUS_ATOL
+    torch.testing.assert_close(got, want, rtol=0, atol=PREVIOUS_ATOL)
+
+
+def test_decoder_and_head_convs_leave_their_bias_to_conv_epilogue(bundle, monkeypatch):
+    """On the card's route no conv is run with its bias: ``conv_epilogue``
+    adds each one, in its residual form at the 9 residual units' second
+    convs (one at level 4, two at each other level), its BatchNorm form
+    (relu) at their first convs and the head's conv to ``head_features``,
+    its bias form at ``upsample_lowres``, the 5 ``out_conv`` and the head's
+    other 3. On the CPU's own route those 18 convs take their bias."""
+    net = port(bundle)
+    forms = spy_epilogues(monkeypatch, dpt_module)
+    with conv_calls() as calls, torch.no_grad():
+        net(bundle["x"])
+    assert sum(bias for _, bias in calls) == 9 + 9 and forms == {"bn": 10}
+    card_route(monkeypatch)
+    forms.clear()
+    with conv_calls() as calls, torch.no_grad():
+        got = net(bundle["x"])
+    assert len(calls) > 2 * 9 + 5 + 4 and not any(bias for _, bias in calls)
+    assert forms == {"residual": 9, "bn": 10, "bias": 9}
+    torch.testing.assert_close(got, bundle["want"], rtol=0, atol=F32_ATOL)
+
+
+@pytest.mark.cuda
+def test_cuda_decoder_and_head_equal_aten_chain_bit_for_bit(bundle, monkeypatch):
+    """On the card (cuDNN's convs, then PyTorch's own bias add): the bf16
+    Depth Pro, whose convs take no bias there, serves the depth that the
+    aten chain in ``conv_epilogue``'s place gives, bit for bit, its fusion
+    blocks and head what the convs with their biases gave, and a forward
+    launches the residual form 9 times."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    net = DepthPro(bundle["config"].depth_pro_config())
+    net.load_state_dict(bundle["sd"])
+    net.to("cuda").to_compute_dtype(torch.bfloat16)
+    x = bundle["x"].cuda()
+    with torch.no_grad():
+        before = ce.conv_epilogue.residual_launches
+        with conv_calls() as calls:
+            got, fusions = _forward_with_fusions(net, x)
+        torch.cuda.synchronize()
+        assert ce.conv_epilogue.residual_launches - before == 9
+        assert calls and not any(bias for _, bias in calls)
+        for m, args, out in fusions:
+            assert torch.equal(out, previous_fusion_block(m, *args))
+        assert torch.equal(got, _previous_head(net, fusions[-1][2]))
+        monkeypatch.setattr(dpt_module, "conv_epilogue", ce.conv_epilogue_reference)
+        want = net(x)
+    assert torch.isfinite(got).all() and torch.equal(got, want)

@@ -15,6 +15,8 @@ import os
 
 import pytest
 import torch
+import torch.nn as nn
+import torch.nn.functional as F
 
 from benchmark import harness, inputs
 from benchmark.loops import closed_dpt
@@ -22,9 +24,12 @@ from benchmark.reference import dpt as ref
 from gelslim_depth_tpu_torch.config import GelslimConfig
 from gelslim_depth_tpu_torch.inference import Predictor
 from gelslim_depth_tpu_torch.models import dpt as dpt_module
-from gelslim_depth_tpu_torch.models.dpt import DPT, DPTConfig, dpt_state_shapes
+from gelslim_depth_tpu_torch.models.dpt import DPT, DPTConfig, FeatureFusionBlock, _bias_relu, dpt_state_shapes
+from gelslim_depth_tpu_torch.ops.kernels import conv_epilogue as ce
 from gelslim_depth_tpu_torch.utils import profiling
-from tests.torch_port_helpers import torch_threads
+from tests.torch_port_helpers import (
+    card_route, conv_calls, previous_fusion_block, previous_residual_unit, spy_epilogues, torch_threads,
+)
 
 PUBLISHED = harness.load_json(os.path.join(harness.ROOT, "benchmark", "configs", "dpt_vitl14_bf16.json"))
 SMALL = {**PUBLISHED,
@@ -253,3 +258,132 @@ def test_config_round_trip(bundle, tmp_path):
     assert json.loads(GelslimConfig().to_json())["dpt"] is None and GelslimConfig().dpt is None
     with pytest.raises(ValueError):
         GelslimConfig().dpt_config()
+
+
+# -- the head's conv biases in conv_epilogue -------------------------------------
+
+
+def _previous_head(head, hooks):
+    """``DPTHead.forward`` (per frame) as it ran before its convs' biases
+    went into ``conv_epilogue``: each conv with its bias, each residual
+    unit's skip add after its second conv."""
+    cfg, s = head.cfg, head.scratch
+    n = hooks[0].shape[0]
+    gh, gw = cfg.grid
+    maps = []
+    for i, (t, proj, resize) in enumerate(zip(hooks, head.projects, head.resize_layers), 1):
+        y = F.linear(t, proj.weight.flatten(1), proj.bias).view(n, gh, gw, -1).permute(0, 3, 1, 2)
+        if isinstance(resize, nn.ConvTranspose2d):
+            y = F.conv_transpose2d(y, resize.weight, resize.bias, stride=resize.stride)
+        elif isinstance(resize, nn.Conv2d):
+            y = F.conv2d(y, resize.weight, resize.bias, stride=2, padding=1)
+        maps.append(F.conv2d(y, getattr(s, f"layer{i}_rn").weight, padding=1))
+    l1, l2, l3, l4 = maps
+    path = previous_fusion_block(s.refinenet4, l4, None, l3.shape[2:])
+    path = previous_fusion_block(s.refinenet3, path, l3, l2.shape[2:])
+    path = previous_fusion_block(s.refinenet2, path, l2, l1.shape[2:])
+    path = previous_fusion_block(s.refinenet1, path, l1, (2 * l1.shape[2], 2 * l1.shape[3]))
+    p = cfg.patch_size
+    y = F.conv2d(path, s.output_conv1.weight, s.output_conv1.bias, padding=1)
+    y = dpt_module.bilinear_resize(y, (gh * p, gw * p))
+    y = _bias_relu(F.conv2d(y, s.output_conv2[0].weight, padding=1), s.output_scale, s.output_shift)
+    return F.conv2d(y, s.output_conv2[2].weight, s.output_conv2[2].bias).float()
+
+
+def _map(g, shape, device="cpu"):
+    return torch.randn(shape, generator=g).to(device).contiguous(memory_format=torch.channels_last)
+
+
+# float32 on the CPU, whose conv may add its bias inside the conv (oneDNN's
+# can), where the two compositions round the bias add apart by a float32
+# rounding; 2e-6 is ~1/1000 of the outputs' scale (they agree exactly
+# where the conv adds its bias apart)
+PREVIOUS_ATOL = 2e-6
+
+
+@pytest.mark.parametrize("module", ["ResidualConvUnit", "FeatureFusionBlock", "FeatureFusionBlock with deconv",
+                                    "DPTHead"])
+def test_head_modules_equal_the_previous_composition(bundle, module, monkeypatch):
+    """With the biases in ``conv_epilogue`` (a residual unit's second conv's
+    with its skip add), the card's route, each module gives what its convs
+    with their biases and the adds after them gave."""
+    card_route(monkeypatch)
+    net = port(bundle)
+    g = torch.Generator().manual_seed(17)
+    block = net.depth_head.scratch.refinenet2
+    x, skip = _map(g, (2, 16, 6, 9)), _map(g, (2, 16, 6, 9))
+    with torch.no_grad():
+        if module == "ResidualConvUnit":
+            got, want = block.resConfUnit1(x), previous_residual_unit(block.resConfUnit1, x)
+        elif module == "FeatureFusionBlock":
+            got, want = block(x, skip, (12, 18)), previous_fusion_block(block, x, skip, (12, 18))
+        elif module == "FeatureFusionBlock with deconv":
+            torch.manual_seed(17)
+            block = FeatureFusionBlock(16, deconv=True)
+            got, want = block(x, skip), previous_fusion_block(block, x, skip)
+        else:
+            hooks = net.pretrained(bundle["x"])
+            got, want = net.depth_head(hooks), _previous_head(net.depth_head, hooks)
+    assert got.shape == want.shape and got.stride() == want.stride()
+    assert rms(want) > 1000 * PREVIOUS_ATOL
+    torch.testing.assert_close(got, want, rtol=0, atol=PREVIOUS_ATOL)
+
+
+def test_head_convs_leave_their_bias_to_conv_epilogue(bundle, monkeypatch):
+    """On the card's route no head conv is run with its bias:
+    ``conv_epilogue`` adds each one, in its residual form at the 7 residual
+    units' second convs (one unit in refinenet4, two in each other), its
+    BatchNorm form (relu) at their first convs and the ``head_features``
+    conv, its bias form at the other 9 (3 resize convs, 4 ``out_conv``,
+    ``output_conv1``, the last 1x1). The depth is the reference's, as
+    test_float32_against_the_reference holds it."""
+    card_route(monkeypatch)
+    net = port(bundle)
+    forms = spy_epilogues(monkeypatch, dpt_module)
+    with conv_calls() as calls, torch.no_grad():
+        got = net(bundle["x"])
+    assert len(calls) == 4 + 3 + 2 * 7 + 4 + 3
+    assert not any(bias for _, bias in calls)
+    assert forms == {"residual": 7, "bn": 8, "bias": 9}
+    torch.testing.assert_close(got, bundle["want"], rtol=0, atol=F32_ATOL)
+
+
+def test_cpu_head_convs_keep_their_bias(bundle, monkeypatch):
+    """On the CPU the 16 convs with a bias that feeds no ReLU take it (the
+    CPU's conv adds it before it rounds, where a bfloat16 add after it
+    would round twice), and aten adds the residual units' skips;
+    ``conv_epilogue`` runs only where a ReLU follows (8)."""
+    net = port(bundle, torch.bfloat16)
+    forms = spy_epilogues(monkeypatch, dpt_module)
+    with conv_calls() as calls, torch.no_grad():
+        net(bundle["x"])
+    assert len(calls) == 4 + 3 + 2 * 7 + 4 + 3
+    assert sum(bias for _, bias in calls) == 7 + 9
+    assert forms == {"bn": 8}
+
+
+@pytest.mark.cuda
+def test_cuda_head_equals_aten_chain_bit_for_bit(bundle, monkeypatch):
+    """On the card PyTorch runs a conv with a bias as cuDNN's conv, then
+    its own bias add: the bf16 DPT, whose head convs take no bias there,
+    serves the depth that the aten chain in ``conv_epilogue``'s place
+    gives, bit for bit, its head what the convs with their biases gave, and
+    a forward launches the residual form 7 times."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    net = DPT(bundle["config"].dpt_config())
+    net.load_state_dict(bundle["sd"])
+    net.to("cuda").to_compute_dtype(torch.bfloat16)
+    x = bundle["x"].cuda()
+    with torch.no_grad():
+        before = ce.conv_epilogue.residual_launches
+        with conv_calls() as calls:
+            got = net(x)
+        torch.cuda.synchronize()
+        assert ce.conv_epilogue.residual_launches - before == 7
+        assert len(calls) == 4 + 3 + 2 * 7 + 4 + 3 and not any(bias for _, bias in calls)
+        hooks = net.pretrained(x.bfloat16())
+        assert torch.equal(net.depth_head(hooks), _previous_head(net.depth_head, hooks))
+        monkeypatch.setattr(dpt_module, "conv_epilogue", ce.conv_epilogue_reference)
+        want = net(x)
+    assert torch.isfinite(got).all() and torch.equal(got, want)
