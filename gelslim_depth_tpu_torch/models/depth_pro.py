@@ -80,7 +80,18 @@ downsamples and the split), ``depth_pro.patch_encoder`` and
 ``depth_pro.image_encoder`` (each holding its blocks' ``dpt.block``
 spans), ``depth_pro.merge``, ``depth_pro.upsample`` (the six blocks and
 ``fuse_lowres``), ``depth_pro.fusion`` (sites ``level4`` ... ``level0``:
-each level's conv and fusion block), ``depth_pro.head``.
+each level's conv and fusion block), ``depth_pro.head``; inside those
+three, each conv, transposed conv and 1x1 matrix product is a
+``head.conv`` span of its own (``models/dpt.py::_head_conv``; its
+``conv_epilogue``, the ReLUs, adds, concat and permutes outside), 50 a
+call, whose sites joined to their level's name the ops of
+``benchmark/yardstick_depth_pro.decoder_ops``: ``latent0.proj``,
+``latent0.up0`` ... ``up2``, ``latent1.proj``, ``latent1.up0``,
+``latent1.up1``, ``x{0,1,2}.proj``, ``x{0,1,2}.up``, ``lowres``,
+``fuse_lowres`` in ``depth_pro.upsample``; ``conv`` (levels 1-4),
+``unit{1,2}.conv{1,2}``, ``deconv`` (levels 1-4) and ``out`` in each
+``depth_pro.fusion``; ``head.0``, ``head.1``, ``head.2``, ``head.4`` in
+``depth_pro.head``.
 ``DepthPro.tiles`` counts the encoder sequences of every forward;
 ``DPT.attention_calls`` the SDPA calls by backend.
 """
@@ -96,7 +107,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gelslim_depth_tpu_torch.models.dpt import (
-    DinoEncoder, DPTConfig, FeatureFusionBlock, ResidualConvUnit, _bias_relu, _conv, _epilogue_vectors, _no_tf32,
+    DinoEncoder, DPTConfig, FeatureFusionBlock, ResidualConvUnit, _bias_relu, _conv, _epilogue_vectors, _head_conv,
+    _no_tf32,
 )
 from gelslim_depth_tpu_torch.utils.profiling import span
 
@@ -196,13 +208,17 @@ def _upsample_block(dim_in: int, dim_out: int, layers: int, dim_int: Optional[in
         nn.ConvTranspose2d(dim_int if i == 0 else dim_out, dim_out, 2, stride=2, bias=False) for i in range(layers)))
 
 
-def _project_upsample(block: nn.Sequential, t: torch.Tensor) -> torch.Tensor:
+def _project_upsample(block: nn.Sequential, t: torch.Tensor, site: str) -> torch.Tensor:
     """An upsample block on (N, h, w, D) tokens: the 1x1 conv as a matrix
     product, whose (N, h, w, C) output is channels-last NCHW, then the
-    transposed convs; (N, C, H, W) channels-last."""
-    y = F.linear(t, block[0].weight.flatten(1)).permute(0, 3, 1, 2)
-    for deconv in block[1:]:
-        y = F.conv_transpose2d(y, deconv.weight, stride=2)
+    transposed convs; (N, C, H, W) channels-last. Its ``head.conv`` sites:
+    ``<site>.proj``, then ``<site>.up`` for one transposed conv, else
+    ``<site>.up0``, ``<site>.up1``, ..."""
+    y = _head_conv(f"{site}.proj", F.linear, t, block[0].weight.flatten(1)).permute(0, 3, 1, 2)
+    ups = block[1:]
+    for j, deconv in enumerate(ups):
+        y = _head_conv(f"{site}.up" if len(ups) == 1 else f"{site}.up{j}", F.conv_transpose2d, y, deconv.weight,
+                       stride=2)
     return y
 
 
@@ -319,14 +335,16 @@ class DepthPro(nn.Module):
             x2 = final[a + b:].view(n, *grid)
             del final
         with span("depth_pro.upsample"):
-            out = [_project_upsample(enc.upsample_latent0, latent0), _project_upsample(enc.upsample_latent1, latent1),
-                   _project_upsample(enc.upsample0, x0), _project_upsample(enc.upsample1, x1)]
-            x2 = _project_upsample(enc.upsample2, x2)
+            out = [_project_upsample(enc.upsample_latent0, latent0, "latent0"),
+                   _project_upsample(enc.upsample_latent1, latent1, "latent1"),
+                   _project_upsample(enc.upsample0, x0, "x0"), _project_upsample(enc.upsample1, x1, "x1")]
+            x2 = _project_upsample(enc.upsample2, x2, "x2")
             lo = enc.upsample_lowres
-            glob = _conv(F.conv_transpose2d, glob.view(n, *grid).permute(0, 3, 1, 2), lo.weight, lo.bias, stride=2)
+            glob = _conv("lowres", F.conv_transpose2d, glob.view(n, *grid).permute(0, 3, 1, 2), lo.weight, lo.bias,
+                         stride=2)
             both = torch.cat([x2.permute(0, 2, 3, 1), glob.permute(0, 2, 3, 1)], dim=-1)
             fuse = enc.fuse_lowres
-            out.append(F.linear(both, fuse.weight.flatten(1), fuse.bias).permute(0, 3, 1, 2))
+            out.append(_head_conv("fuse_lowres", F.linear, both, fuse.weight.flatten(1), fuse.bias).permute(0, 3, 1, 2))
         return out
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -338,16 +356,17 @@ class DepthPro(nn.Module):
                 with span("depth_pro.fusion", f"level{i}"):
                     e, conv = levels.pop(), dec.convs[i]
                     if isinstance(conv, nn.Conv2d):
-                        e = F.conv2d(e, conv.weight, padding=1)
+                        e = _head_conv("conv", F.conv2d, e, conv.weight, padding=1)
                     f = dec.fusions[i](e, None) if f is None else dec.fusions[i](f, e)
                     del e
             with span("depth_pro.head"):
                 h = self.head
-                y = _conv(F.conv2d, f, h[0].weight, h[0].bias, padding=1)
+                y = _conv("head.0", F.conv2d, f, h[0].weight, h[0].bias, padding=1)
                 del f
-                y = _conv(F.conv_transpose2d, y, h[1].weight, h[1].bias, stride=2)
-                y = _bias_relu(F.conv2d(y, h[2].weight, padding=1), self.head_out_scale, self.head_out_shift)
-                return _conv(F.conv2d, y, h[4].weight, h[4].bias).float()
+                y = _conv("head.1", F.conv_transpose2d, y, h[1].weight, h[1].bias, stride=2)
+                y = _bias_relu(_head_conv("head.2", F.conv2d, y, h[2].weight, padding=1), self.head_out_scale,
+                               self.head_out_shift)
+                return _conv("head.4", F.conv2d, y, h[4].weight, h[4].bias).float()
 
 
 def depth_pro_state_shapes(cfg: DepthProConfig):

@@ -101,10 +101,17 @@ residual adds with the LayerNorms they feed, the next block's norm1
 among them) holding ``dpt.attention`` (the head split, the SDPA call,
 the merge) and ``dpt.mlp`` (fc1, GELU, fc2); ``dpt.head`` holding
 ``dpt.reassemble`` (projections, resizes, ``layer{i}_rn``), ``dpt.fusion``
-(sites ``refinenet4`` ... ``refinenet1``) and ``dpt.output``; with the temporal
-head a ``dpt.temporal`` a module (sites ``layer3`` and ``layer4`` inside
-``dpt.reassemble``, ``path4`` and ``path3`` after their fusion block),
-holding a ``dpt.temporal_attention`` an attention block (site its index:
+(sites ``refinenet4`` ... ``refinenet1``) and ``dpt.output``, each conv of
+which is a ``head.conv`` span of its own (``_head_conv``: the conv, or
+the 1x1 projection's matrix product with its bias, and nothing else; its
+``conv_epilogue``, the ReLUs, adds and resizes outside), 32 a call at
+sites ``layer{i}.proj``, ``layer{i}.resize`` and ``layer{i}_rn`` in
+``dpt.reassemble``, ``unit{1,2}.conv{1,2}`` and ``out`` in each
+``dpt.fusion``, ``output_conv1``, ``output_conv2.0`` and ``output_conv2.2``
+in ``dpt.output``; with the temporal head a ``dpt.temporal`` a module
+(sites ``layer3`` and ``layer4`` inside ``dpt.reassemble``, ``path4`` and
+``path3`` after their fusion block), holding a
+``dpt.temporal_attention`` an attention block (site its index:
 the head split, the SDPA call, the merge) and ``dpt.temporal_ff`` (the
 feed-forward and its residual add). ``DPT.attention_calls`` counts the
 encoder's SDPA calls by the backend pinned, ``DPT.temporal_attention_calls``
@@ -231,16 +238,25 @@ def _epilogue_bias(x: torch.Tensor) -> bool:
     return x.is_cuda
 
 
-def _conv(fn, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, residual: Optional[torch.Tensor] = None,
-          **kw) -> torch.Tensor:
+def _head_conv(site: str, fn, *args, **kw) -> torch.Tensor:
+    """``fn(*args, **kw)``, one conv of a head (``F.conv2d``,
+    ``F.conv_transpose2d``, or ``F.linear`` as a 1x1 conv on tokens), alone
+    in a ``head.conv`` span at ``site``: the passes around it stay outside."""
+    with span("head.conv", site):
+        return fn(*args, **kw)
+
+
+def _conv(site: str, fn, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+          residual: Optional[torch.Tensor] = None, **kw) -> torch.Tensor:
     """``fn(x, weight, bias, **kw)`` (``F.conv2d`` or ``F.conv_transpose2d``),
     plus ``residual`` where one is given: where ``_epilogue_bias``, the conv
     without its bias and one ``conv_epilogue`` (its bias form, or its
     residual form: the bias add, then the skip add, each rounded to the
-    compute dtype); else the conv with its bias and aten's add."""
+    compute dtype); else the conv with its bias and aten's add. The conv is
+    a ``head.conv`` span at ``site`` (``_head_conv``)."""
     if _epilogue_bias(x):
-        return conv_epilogue(fn(x, weight, **kw), bias=bias, residual=residual)
-    y = fn(x, weight, bias, **kw)
+        return conv_epilogue(_head_conv(site, fn, x, weight, **kw), bias=bias, residual=residual)
+    y = _head_conv(site, fn, x, weight, bias, **kw)
     return y if residual is None else y + residual
 
 
@@ -373,30 +389,38 @@ class DinoEncoder(nn.Module):
 # ---------------------------------------------------------------------------
 
 class ResidualConvUnit(nn.Module):
-    def __init__(self, features: int):
+    """``x + conv2(relu(conv1(relu(x))))``; ``site`` (``unit1``, ``unit2``)
+    names its convs' ``head.conv`` spans, ``<site>.conv1`` and
+    ``<site>.conv2``."""
+
+    def __init__(self, features: int, site: str):
         super().__init__()
         self.conv1 = nn.Conv2d(features, features, 3, padding=1)
         self.conv2 = nn.Conv2d(features, features, 3, padding=1)
+        self.sites = (f"{site}.conv1", f"{site}.conv2")
         self.fold_bias()
 
     def fold_bias(self) -> None:
         _epilogue_vectors(self, "conv1", self.conv1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = _bias_relu(F.conv2d(torch.relu(x), self.conv1.weight, padding=1), self.conv1_scale, self.conv1_shift)
-        return _conv(F.conv2d, h, self.conv2.weight, self.conv2.bias, residual=x, padding=1)
+        h = _bias_relu(_head_conv(self.sites[0], F.conv2d, torch.relu(x), self.conv1.weight, padding=1),
+                       self.conv1_scale, self.conv1_shift)
+        return _conv(self.sites[1], F.conv2d, h, self.conv2.weight, self.conv2.bias, residual=x, padding=1)
 
 
 class FeatureFusionBlock(nn.Module):
     """``x (+ resConfUnit1(skip))``, ``resConfUnit2``, an upsample, a 1x1
     conv. The upsample is the DPT's bilinear resize to ``size``; with
     ``deconv`` (Depth Pro's ``FeatureFusionBlock2d``) a transposed conv k2
-    s2 without bias in its place, and with neither none."""
+    s2 without bias in its place, and with neither none. Its convs'
+    ``head.conv`` sites: ``unit1.conv1`` ... ``unit2.conv2``, ``deconv``,
+    ``out``."""
 
     def __init__(self, features: int, deconv: bool = False):
         super().__init__()
-        self.resConfUnit1 = ResidualConvUnit(features)
-        self.resConfUnit2 = ResidualConvUnit(features)
+        self.resConfUnit1 = ResidualConvUnit(features, "unit1")
+        self.resConfUnit2 = ResidualConvUnit(features, "unit2")
         self.deconv = nn.ConvTranspose2d(features, features, 2, stride=2, bias=False) if deconv else None
         self.out_conv = nn.Conv2d(features, features, 1)
 
@@ -406,10 +430,10 @@ class FeatureFusionBlock(nn.Module):
             x = x + self.resConfUnit1(skip)
         x = self.resConfUnit2(x)
         if self.deconv is not None:
-            x = F.conv_transpose2d(x, self.deconv.weight, stride=2)
+            x = _head_conv("deconv", F.conv_transpose2d, x, self.deconv.weight, stride=2)
         elif size is not None:
             x = bilinear_resize(x, size)
-        return _conv(F.conv2d, x, self.out_conv.weight, self.out_conv.bias)
+        return _conv("out", F.conv2d, x, self.out_conv.weight, self.out_conv.bias)
 
 
 class Scratch(nn.Module):
@@ -621,14 +645,17 @@ class DPTHead(nn.Module):
         gh, gw = self.cfg.grid
         out = []
         for i, (t, proj, resize) in enumerate(zip(hooks, self.projects, self.resize_layers), 1):
-            y = F.linear(t, proj.weight.flatten(1), proj.bias).view(n, gh, gw, -1).permute(0, 3, 1, 2)
+            y = _head_conv(f"layer{i}.proj", F.linear, t, proj.weight.flatten(1), proj.bias)
+            y = y.view(n, gh, gw, -1).permute(0, 3, 1, 2)
             if isinstance(resize, nn.ConvTranspose2d):
-                y = _conv(F.conv_transpose2d, y, resize.weight, resize.bias, stride=resize.stride)
+                y = _conv(f"layer{i}.resize", F.conv_transpose2d, y, resize.weight, resize.bias,
+                          stride=resize.stride)
             elif isinstance(resize, nn.Conv2d):
-                y = _conv(F.conv2d, y, resize.weight, resize.bias, stride=2, padding=1)
+                y = _conv(f"layer{i}.resize", F.conv2d, y, resize.weight, resize.bias, stride=2, padding=1)
             if self.cfg.temporal and i >= 3:
                 y = self._temporal(i - 3, f"layer{i}", y, streams)
-            out.append(F.conv2d(y, getattr(self.scratch, f"layer{i}_rn").weight, padding=1))
+            rn = getattr(self.scratch, f"layer{i}_rn")
+            out.append(_head_conv(f"layer{i}_rn", F.conv2d, y, rn.weight, padding=1))
         return out
 
     def forward(self, hooks: List[torch.Tensor], streams: int = 1) -> torch.Tensor:
@@ -650,10 +677,11 @@ class DPTHead(nn.Module):
         with span("dpt.output"):
             p = self.cfg.patch_size
             gh, gw = self.cfg.grid
-            y = _conv(F.conv2d, path, s.output_conv1.weight, s.output_conv1.bias, padding=1)
+            y = _conv("output_conv1", F.conv2d, path, s.output_conv1.weight, s.output_conv1.bias, padding=1)
             y = bilinear_resize(y, (gh * p, gw * p))
-            y = _bias_relu(F.conv2d(y, s.output_conv2[0].weight, padding=1), s.output_scale, s.output_shift)
-            y = _conv(F.conv2d, y, s.output_conv2[2].weight, s.output_conv2[2].bias)
+            y = _bias_relu(_head_conv("output_conv2.0", F.conv2d, y, s.output_conv2[0].weight, padding=1),
+                           s.output_scale, s.output_shift)
+            y = _conv("output_conv2.2", F.conv2d, y, s.output_conv2[2].weight, s.output_conv2[2].bias)
             return y.float()
 
 

@@ -11,7 +11,10 @@ JAX package uses ``jax.profiler``), and ``StepTimer`` is a rolling
 wall-clock step timer, as the JAX package's.
 
 ``span`` marks the program's own layers: the serving call, its front end,
-U-Net and post, each U-Net block and each conv launch. Off, it costs one
+U-Net and post, each U-Net block and each conv launch; the transformers'
+encoder, blocks, attention and MLP, their heads' and Depth Pro's decoder's
+layers, and each conv call of those (``head.conv``: the conv alone, its
+epilogue and the passes around it outside). Off, it costs one
 call and a ``with``; under ``recording()`` each span keeps its interval on
 ``time.time_ns()``, the clock of ``torch.profiler``'s events, so a reader
 can put the device ops of a trace of the same block into the span whose

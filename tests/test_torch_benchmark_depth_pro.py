@@ -23,6 +23,8 @@ import torch
 
 from benchmark import faults, harness, spans, yardstick, yardstick_depth_pro
 from benchmark.tests import small
+from benchmark.yardstick_depth_pro import ELEMENTWISE
+from benchmark.yardstick_dpt import op_ms
 from tests.test_torch_benchmark_dpt import _with_device_ops
 from tests.test_torch_depth_pro import SMALL, controls
 from tests.torch_port_helpers import torch_threads
@@ -30,7 +32,8 @@ from tests.torch_port_helpers import torch_threads
 WORKLOAD = "depth_pro_batch8"
 TRAFFIC = {"depth_pro_batch8": {"dual_frames_per_call": 2, "pool": 2, "kept_calls": 2, "warmup_calls": 1,
                                 "traced_calls": 2}}
-METRICS = ("mfu.depth_pro", "vit_roofline.depth_pro", "decoder_roofline.depth_pro")
+METRICS = ("mfu.depth_pro", "vit_roofline.depth_pro", "decoder_roofline.depth_pro", "decoder_conv_roofline.depth_pro",
+           "decoder_passes_roofline.depth_pro")
 DECODER_SPANS = ("depth_pro.upsample", "depth_pro.fusion", "depth_pro.head")
 
 
@@ -95,10 +98,18 @@ def test_traced_run_reads_the_depth_pro_metrics(root):
     got = {m: harness.load_reader(m, root)(st, ctx) for m in METRICS}
     images = 2 * cell.traffic["dual_frames_per_call"]
     block_ms = op_us / 1e3 * (names.count("dpt.block") + names.count("dpt.attention") + names.count("dpt.mlp")) / 2
-    decoder_ms = op_us / 1e3 * sum(names.count(s) for s in DECODER_SPANS) / 2
+    # one op a span: the three decoder spans' own and their head.conv spans'
+    decoder_ms = op_us / 1e3 * sum(any(st.within(i, s) for s in DECODER_SPANS) for i in range(len(st.spans))) / 2
+    conv_ms = op_us / 1e3 * names.count("head.conv") / 2
+    assert names.count("head.conv") == 2 * 50
     assert got["vit_roofline.depth_pro"] == pytest.approx(
         100 * yardstick_depth_pro.vit_bound_ms(cell.config, images, ctx["peaks"]) / block_ms)
     assert got["decoder_roofline.depth_pro"] == pytest.approx(
         100 * yardstick_depth_pro.decoder_bound_ms(cell.config, images, ctx["peaks"]) / decoder_ms)
+    ops = yardstick_depth_pro.decoder_ops(cell.config, images)
+    conv_bound = sum(op_ms(op, ctx["peaks"]) for op in ops if op.name.rsplit(".", 1)[-1] not in ELEMENTWISE)
+    passes_bound = sum(op_ms(op, ctx["peaks"]) for op in ops if op.name.rsplit(".", 1)[-1] in ELEMENTWISE)
+    assert got["decoder_conv_roofline.depth_pro"] == pytest.approx(100 * conv_bound / conv_ms)
+    assert got["decoder_passes_roofline.depth_pro"] == pytest.approx(100 * passes_bound / (decoder_ms - conv_ms))
     assert got["mfu.depth_pro"] == pytest.approx(
         100 * yardstick_depth_pro.call_flops(cell.config, 2) * 2 / st.window_s / ctx["peaks"].bf16_flops)

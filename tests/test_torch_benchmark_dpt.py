@@ -30,7 +30,8 @@ TRAFFIC = {"dpt_batch64": {"dual_frames_per_call": 4, "pool": 2, "kept_calls": 2
 SMALL = {"input_tactile_image_size": [28, 42], "frame_size": [32, 43]}
 SMALL_DPT = {"embed_dim": 64, "depth": 4, "num_heads": 4, "hooks": [0, 1, 2, 3], "features": 16,
              "out_channels": [8, 16, 32, 32]}
-METRICS = ("mfu.dpt", "vit_roofline.dpt", "attention_roofline.dpt", "dpt_head_ms.dpt", "launches_per_call.dpt")
+METRICS = ("mfu.dpt", "vit_roofline.dpt", "attention_roofline.dpt", "dpt_head_ms.dpt", "launches_per_call.dpt",
+           "head_passes_ms.dpt")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -108,9 +109,12 @@ def test_traced_run_reads_the_span_metrics(root):
     per_call = len(st.spans) / 2  # every span of the slice is inside a call
     block_ms = op_us / 1e3 * (names.count("dpt.block") + names.count("dpt.attention") + names.count("dpt.mlp")) / 2
     head = sum(st.within(i, "dpt.head") for i in range(len(st.spans))) / 2
+    convs = sum(st.within(i, "head.conv") for i in range(len(st.spans))) / 2
+    assert convs == 32
     images = 2 * cell.traffic["dual_frames_per_call"]
     assert got["launches_per_call.dpt"] == pytest.approx(per_call)
     assert got["dpt_head_ms.dpt"] == pytest.approx(op_us / 1e3 * head)
+    assert got["head_passes_ms.dpt"] == pytest.approx(op_us / 1e3 * (head - convs))
     assert got["vit_roofline.dpt"] == pytest.approx(
         100 * yardstick_dpt.vit_bound_ms(cell.config, images, ctx["peaks"]) / block_ms)
     assert got["attention_roofline.dpt"] == pytest.approx(
