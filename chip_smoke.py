@@ -117,6 +117,9 @@ CONV_FAST_PATH = conv_int8.PATHS[-1]  # the mainloop every flagship launch must 
 EPILOGUE_SOURCE = "gelslim_depth_tpu_torch/csrc/conv_epilogue.cu"
 EPILOGUE_REPLACES = "gelslim_depth_tpu/models/unet.py:197"
 EPILOGUES_PER_CALL = {"bf16": 22, "int8": 5}  # conv_epilogue launches a flagship serving call
+# of the bf16 call's, those that store into the up blocks' concat buffers: 4
+# levels' last epilogues and 4 upconvs
+INTO_EPILOGUES_PER_CALL = 8
 RESIZE_SOURCE = "gelslim_depth_tpu_torch/csrc/bilinear_resize.cu"
 RESIZE_REPLACES = "none: F.interpolate at gelslim_depth_tpu_torch/models/dpt.py's five bilinear resizes (no DPT in JAX)"
 DPT_CONFIG = "benchmark/configs/dpt_vitl14_bf16.json"  # Depth Anything V2 vitl at 308x420
@@ -132,6 +135,11 @@ DPT_RESIDUAL_EPILOGUES_PER_CALL = 7
 # a residual unit's second conv in Depth Pro's decoder at 16 finger images
 # (level 1, 384 x 384): the residual form timed alone
 RESIDUAL_SHAPE = (16, 256, 384, 384)
+# the destination form at up_3 at N=64 dual frames: inc/conv2's (128, 64,
+# 160, 213) BatchNorm + relu into its own skip and the lower 64 channels of
+# the up block's 128-channel concat buffer; the upconv's (128, 64, 160, 212)
+# bias into the upper 64, left of the pad column
+INTO_SHAPE = (128, 64, 160, 213)
 RLN_SOURCE = "gelslim_depth_tpu_torch/csrc/residual_layer_norm.cu"
 RLN_REPLACES = ("none: torch.addcmul + F.layer_norm at gelslim_depth_tpu_torch/models/dpt.py's encoder residual adds "
                 "(no transformer in JAX)")
@@ -496,7 +504,8 @@ def drive_main_path(cfg, sd, frames64, base):
     turns TF32 off itself where it runs float32): float32 kernel vs composed
     route, bfloat16 vs float32, at N = 1, 8, 64; every call launches the
     front end once (the composed route: not at all) and conv_epilogue 22
-    times. Returns the kernels' launch counts over the run."""
+    times, the bf16 call 8 of them into its up blocks' concat buffers.
+    Returns the kernels' launch counts over the run."""
     print(f"torch defaults: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
           f"float32 matmul precision {torch.get_float32_matmul_precision()!r}", flush=True)
     pred16 = Predictor(cfg, sd, compute_dtype=torch.bfloat16)
@@ -517,10 +526,13 @@ def drive_main_path(cfg, sd, frames64, base):
             ("f32", lambda: pred32.predict_dual_frames(frames, base, FRAME), 1),
             ("f32_plain", lambda: composed_route(frames), 0),
         ):
-            before = fused_preprocess_dual.launches, conv_epilogue.launches
+            before = fused_preprocess_dual.launches, conv_epilogue.launches, conv_epilogue.into_launches
             outs[name] = run()
-            rose = fused_preprocess_dual.launches - before[0], conv_epilogue.launches - before[1]
-            check(rose == (launched, eps), f"{name} N={n}: launches rose by {rose}, want ({launched}, {eps} conv_epilogue)")
+            rose = (fused_preprocess_dual.launches - before[0], conv_epilogue.launches - before[1],
+                    conv_epilogue.into_launches - before[2])
+            into = INTO_EPILOGUES_PER_CALL if name == "bf16" else 0
+            check(rose == (launched, eps, into),
+                  f"{name} N={n}: launches rose by {rose}, want ({launched}, {eps} conv_epilogue, {into} into)")
         torch.cuda.synchronize()
         for name, out in outs.items():
             check(tuple(out.shape) == (n, 2, *FRAME), f"{name} N={n}: shape {tuple(out.shape)}")
@@ -842,6 +854,77 @@ def measure_residual_epilogue(peaks, g):
     return rec
 
 
+def into_cases(g, shape=INTO_SHAPE):
+    """The destination form's two launches at an up block, as the bf16
+    walk makes them: (form, y, its kwargs with ``into``, the buffer; the
+    same kwargs with fresh destinations for the twin, its buffer). The
+    level's last epilogue (BatchNorm + relu) stores into an own tensor and
+    the buffer's lower C channels; the upconv (bias, one column narrower)
+    into the upper C, left of the pad column. Buffers start at 7, so what
+    a store leaves shows."""
+    n, c, h, w = shape
+    out = []
+    for form, mode, width in (("skip", "bn", w), ("upconv", "bias", w - 1)):
+        y, kw = epilogue_inputs(g, (n, c, h, width), "channels_last", mode, False)
+        sides = []
+        for _ in range(2):
+            buf = torch.full((n, 2 * c, h, w), 7.0, device="cuda", dtype=y.dtype).contiguous(
+                memory_format=torch.channels_last)
+            into = [torch.empty_like(y), buf[:, :c]] if form == "skip" else [buf[:, c:, :, :width]]
+            sides.append((dict(kw, into=into), buf))
+        out.append((form, y, *sides[0], *sides[1]))
+    return out
+
+
+def check_into_epilogue(g):
+    """conv_epilogue's destination form vs its twin (the reference, then a
+    copy into each destination) at up_3's shape (INTO_SHAPE): the concat
+    buffer, pad column included, and the skip's own tensor bit for bit;
+    one launch each, counted as an into one."""
+    for form, y, kw, buf, twin_kw, twin_buf in into_cases(g):
+        before = conv_epilogue.into_launches
+        conv_epilogue(y, **kw)
+        conv_epilogue_reference(y, **twin_kw)
+        torch.cuda.synchronize()
+        check(conv_epilogue.into_launches == before + 1, f"conv_epilogue into {form}: launched {conv_epilogue.into_launches - before}")
+        check(same_bits(buf, twin_buf), f"conv_epilogue into {form} at {INTO_SHAPE}: the buffer differs from the twin's")
+        check(same_bits(kw["into"][0], twin_kw["into"][0]), f"conv_epilogue into {form}: the own tensor differs")
+        print(f"conv_epilogue into {form} {tuple(y.shape)} -> buffer {tuple(buf.shape)}: equal to the twin", flush=True)
+        del y, kw, buf, twin_kw, twin_buf
+        torch.cuda.empty_cache()
+
+
+def measure_into_epilogue(peaks, g):
+    """conv_epilogue's destination form alone at up_3's shape: device ms
+    against the byte bound (y read once, each destination written once, at
+    the card's bandwidth) and, beside it, the passes it replaces at the
+    site: the form without ``into`` and aten's pad and concat of its
+    output. Returns the record."""
+    bw = peaks[0]
+    rec = {"shape": list(INTO_SHAPE)}
+    for form, y, kw, buf, _, _ in into_cases(g):
+        bound = 1e3 * y.numel() * y.element_size() * (1 + len(kw["into"])) / bw
+        ms = kernel_device_ms(lambda: conv_epilogue(y, **kw), bound, f"conv_epilogue into {form} {INTO_SHAPE}")
+        plain = {k: v for k, v in kw.items() if k != "into"}
+        rec[form] = {"ms": ms, "bound_ms": bound, "destinations": len(kw["into"]),
+                     "own_output_ms": device_ms(lambda: conv_epilogue(y, **plain), calls=5)}
+        print(f"conv_epilogue into {form} {tuple(y.shape)} bf16 -> {len(kw['into'])} destination(s): kernel "
+              f"{ms:.4f} ms, bound {bound:.4f} ms ({100 * bound / ms:.1f}% of it); own output "
+              f"{rec[form]['own_output_ms']:.4f} ms", flush=True)
+        del y, kw, buf
+        torch.cuda.empty_cache()
+    n, c, h, w = INTO_SHAPE
+    skip = torch.zeros((n, c, h, w), device="cuda", dtype=torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    up = torch.zeros((n, c, h, w - 1), device="cuda", dtype=torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    rec["aten_pad_ms"] = device_ms(lambda: F.pad(up, [0, 1, 0, 0]), calls=5)
+    padded = F.pad(up, [0, 1, 0, 0])
+    rec["aten_cat_ms"] = device_ms(lambda: torch.cat([skip, padded], dim=1), calls=5)
+    print(f"aten at up_3 {INTO_SHAPE}: pad {rec['aten_pad_ms']:.4f} ms, concat {rec['aten_cat_ms']:.4f} ms", flush=True)
+    del skip, up, padded
+    torch.cuda.empty_cache()
+    return rec
+
+
 def resize_input(g, n_img, c, hw, dtype=torch.bfloat16):
     """A channels-last map of the site's shape, normal at scale 3."""
     x = torch.randn((n_img, c, *hw), generator=g, device="cuda") * 3
@@ -1081,6 +1164,7 @@ def reset_launches() -> None:
     conv2d_int8.launches_by_path = dict.fromkeys(conv_int8.PATHS, 0)
     conv_epilogue.launches = 0
     conv_epilogue.residual_launches = 0
+    conv_epilogue.into_launches = 0
     bilinear_resize.launches = 0
     residual_layer_norm.launches = 0
 
@@ -1089,6 +1173,7 @@ def read_launches() -> dict:
     return {"fused_preprocess_dual": fused_preprocess_dual.launches, "conv2d_int8": conv2d_int8.launches,
             "conv2d_int8_by_path": dict(conv2d_int8.launches_by_path), "conv_epilogue": conv_epilogue.launches,
             "conv_epilogue_residual": conv_epilogue.residual_launches,
+            "conv_epilogue_into": conv_epilogue.into_launches,
             "bilinear_resize": bilinear_resize.launches, "residual_layer_norm": residual_layer_norm.launches}
 
 
@@ -2382,6 +2467,7 @@ def main() -> None:
     max_err = check_kernel(g)
     conv_err = check_conv_int8(g)
     epilogue_err = check_conv_epilogue(g)
+    check_into_epilogue(g)
     resize_err = check_bilinear_resize(g)
 
     cfg = flagship_config()
@@ -2402,6 +2488,7 @@ def main() -> None:
     sites = measure_conv_sites(peaks, g)
     epilogues = measure_conv_epilogue_sites(peaks, g)
     residual_epilogue = measure_residual_epilogue(peaks, g)
+    into_epilogue = measure_into_epilogue(peaks, g)
     resizes = measure_bilinear_resize_sites(peaks, g)
     residual_norms = measure_residual_layer_norm(peaks, g)
     dpt_run, dpt_launches = drive_dpt(g)
@@ -2475,6 +2562,8 @@ def main() -> None:
         "graphs": {k: {kk: vv for kk, vv in v.items() if kk != "sites"} for k, v in epilogues.items()},
         "residual_launches": sum(v.get("conv_epilogue_residual", 0) for v in path_launches.values()),
         "alone_at_residual_unit": residual_epilogue,
+        "into_launches": sum(v.get("conv_epilogue_into", 0) for v in path_launches.values()),
+        "alone_at_up_3": into_epilogue,
     }, {
         # times summed over the DPT head's five sites at N=128 finger images;
         # plain: the twin, which is the library call F.interpolate

@@ -35,6 +35,13 @@
 // head the bias form at each other conv that has a bias, and the residual
 // form at the second conv of each ResidualConvUnit (7 a DPT call, 9 a
 // Depth Pro call), where the chain was a bias add, then the skip add.
+// The destination form (conv_epilogue_into) stores the bias or BatchNorm
+// form's out = v of a channels-last y into one or two given views of y's
+// shape (channels contiguous, any N, H and W strides) instead of a tensor
+// of its own: the bf16 U-Net's concat buffers, so that aten's pad and
+// concat (a copy of the upconv's output, then a read and a write of both
+// halves) do not run. At up_3 (128 x 64 x 160 x 213) the skip's two stores
+// make 0.84 GB moved against 0.56 for one (0.50 ms and 0.33 at 3.35 TB/s).
 // Each multiply and add is rounded on its own (__fmul_rn, __fadd_rn, no
 // contracted FMA) and rounded where PyTorch's separate ops round (a bf16 +
 // bf16 add is a float32 add rounded to bf16; the BN affine and the
@@ -64,7 +71,10 @@
 // picks per element. Flat vectors rather than a block a plane: the deep
 // planes hold 130 elements, too few to fill a block, and start off 16 B.
 // An int8 output of an NCHW y is stored a byte at a time (NHWC). The
-// residual form loads x's vectors beside y's, at the same offsets. Indices
+// residual form loads x's vectors beside y's, at the same offsets. The
+// destination form finds each vector's pixel (n, h, w) by division and
+// stores it at n * sN + h * sH + w * sW + c in each view, where those
+// strides are multiples of 8 and the views 16-B aligned. Indices
 // are 32-bit: a tensor of 2^32 elements or more (Depth Pro's transposed
 // conv to 1536 x 1536 x 128 at 16 images) is launched a run of whole
 // images at a time, each run below 2^32. Anything else (misaligned
@@ -466,6 +476,99 @@ cudaError_t launch_dtype(const Params& p, bool vec, bool cl, cudaStream_t s) {
 
 bool aligned(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 
+// The destination form: the bias or BatchNorm form's result stored into one
+// or two views of y's shape instead of a tensor of y's own, y channels-last.
+// A view's channels are contiguous; its N, H and W strides (in elements) are
+// any. The U-Net's up blocks take it: the last epilogue of a level stores
+// the skip into its own tensor and into the lower channels of the up
+// block's concat buffer, the upconv's bias epilogue into the upper ones at
+// the pad offset, so no pad or concat pass runs. Its own kernels, so the
+// other forms' instances compile as they did.
+struct Into {
+  void* dst[2];
+  long long sn[2], sh[2], sw[2];
+  unsigned h, w;
+  int n;  // destinations: 1 or 2
+};
+
+// The 8 values of y's channels-last vector at flat index e (C a multiple of
+// 8) stored to each destination, 16-B aligned there (the host checks).
+template <typename T>
+__device__ __forceinline__ void store_into(const Params& p, const Into& d, unsigned e, const float (&v)[kVec]) {
+  const unsigned pixel = p.c_mask ? e >> __popc(p.c_mask) : e / static_cast<unsigned>(p.c);
+  const unsigned c0 = e - pixel * static_cast<unsigned>(p.c);
+  const unsigned x = pixel % d.w, rows = pixel / d.w, row = rows % d.h, n = rows / d.h;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    if (k == d.n) break;
+    store8(static_cast<T*>(d.dst[k]) + (n * d.sn[k] + row * d.sh[k] + x * d.sw[k] + c0), 0u, v);
+  }
+}
+
+// The vector route of the destination form: conv_epilogue_vec's loads and
+// epilogue (no q_scale, no residual), then store_into.
+template <typename T, int kAct>
+__global__ void __launch_bounds__(kThreads) conv_epilogue_into_vec(Params p, Into d) {
+  const unsigned n_vec = static_cast<unsigned>(p.total / kVec);
+  const unsigned t0 = blockIdx.x * (kThreads * kSub) + threadIdx.x;
+  float v[kSub][kVec];
+#pragma unroll
+  for (int s = 0; s < kSub; ++s)
+    if (t0 + s * kThreads < n_vec) load8(static_cast<const T*>(p.y), (t0 + s * kThreads) * kVec, v[s]);
+  float a[kVec], b[kVec];
+  if (p.cl_shared) channel_params<T, kAct>(p, t0 * kVec, a, b);
+#pragma unroll
+  for (int s = 0; s < kSub; ++s) {
+    const unsigned e = (t0 + s * kThreads) * kVec;
+    if (t0 + s * kThreads >= n_vec) break;
+    if (!p.cl_shared) channel_params<T, kAct>(p, e, a, b);
+    epilogue<sizeof(T) == 2, false, kAct>(p, v[s], a, b);
+    store_into<T>(p, d, e, v[s]);
+  }
+}
+
+// One element a thread of the destination form, any C, strides and
+// alignment.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) conv_epilogue_into_loop(Params p, Into d) {
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < p.total; i += stride) {
+    const long long pixel = i / p.c, c = i - pixel * p.c;
+    const long long x = pixel % d.w, rows = pixel / d.w, row = rows % d.h, n = rows / d.h;
+    float v = load1(static_cast<const T*>(p.y), i);
+    if (p.act == kNone)
+      v = __fadd_rn(v, load1(static_cast<const T*>(p.bias), c));
+    else
+      v = activate(p.act, __fadd_rn(__fmul_rn(v, __ldg(p.bn_mul + c)), __ldg(p.bn_add + c)));
+    for (int k = 0; k < d.n; ++k) {
+      const long long at = n * d.sn[k] + row * d.sh[k] + x * d.sw[k] + c;
+      if (sizeof(T) == 2)
+        static_cast<__nv_bfloat16*>(d.dst[k])[at] = __float2bfloat16_rn(v);
+      else
+        static_cast<float*>(d.dst[k])[at] = v;
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_into(const Params& p, const Into& d, bool vec, cudaStream_t s) {
+  if (!vec) {
+    const long long want = (p.total + kThreads - 1) / kThreads;
+    conv_epilogue_into_loop<T><<<static_cast<unsigned>(want < 65536 ? want : 65536), kThreads, 0, s>>>(p, d);
+    return cudaGetLastError();
+  }
+  const unsigned long long n_vec = p.total / kVec, per_block = kThreads * kSub;
+  const unsigned blocks = static_cast<unsigned>((n_vec + per_block - 1) / per_block);
+  const dim3 grid(blocks > 0 ? blocks : 1);
+  if (p.act == kNone)
+    conv_epilogue_into_vec<T, kNone><<<grid, kThreads, 0, s>>>(p, d);
+  else if (p.act == kRelu)
+    conv_epilogue_into_vec<T, kRelu><<<grid, kThreads, 0, s>>>(p, d);
+  else
+    conv_epilogue_into_vec<T, kRare><<<grid, kThreads, 0, s>>>(p, d);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches on `stream`, a stream of CUDA device `device` (made the calling
@@ -519,6 +622,67 @@ extern "C" int conv_epilogue(const void* y, void* out, const void* bias, const f
                      (residual == nullptr || aligned(p.residual)) &&
                      (cl ? c % kVec == 0 && params_aligned : hw >= kVec);
     err = bf16 ? launch_dtype<__nv_bfloat16>(p, vec, cl, s) : launch_dtype<float>(p, vec, cl, s);
+  }
+  if (prev != device) cudaSetDevice(prev);
+  return static_cast<int>(err);
+}
+
+// The destination form, launched as conv_epilogue is: y (n, c, h, w)
+// channels-last, bfloat16 (bf16 = 1) or float32; the bias form (bias in y's
+// dtype, act 0) or the BatchNorm form (bn_mul, bn_add float32, act 1-3);
+// the result stored into dst0 and, where dst1 is not null, into dst1 too:
+// views of y's shape and dtype with contiguous channels, element strides
+// sn, sh, sw for N, H and W. Returns as conv_epilogue does.
+extern "C" int conv_epilogue_into(const void* y, const void* bias, const float* bn_mul, const float* bn_add,
+                                  void* dst0, long long sn0, long long sh0, long long sw0, void* dst1, long long sn1,
+                                  long long sh1, long long sw1, long long n, int c, long long h, long long w, int bf16,
+                                  int act, int device, void* stream) {
+  if (n < 0 || c < 0 || h < 0 || w < 0 || act < kNone || act > kMish || dst0 == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool bn = bn_mul != nullptr && bn_add != nullptr;
+  if (bias != nullptr ? bn_mul != nullptr || bn_add != nullptr || act != kNone : !bn || act == kNone)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long per_image = static_cast<long long>(c) * h * w;
+  if (n * per_image == 0) return 0;
+  if (h >= (1LL << 32) || w >= (1LL << 32)) return static_cast<int>(cudaErrorInvalidValue);
+  Params p = {};
+  p.bias = bias;
+  p.bn_mul = bn_mul;
+  p.bn_add = bn_add;
+  p.hw = h * w;
+  p.c = c;
+  p.c_mask = (c & (c - 1)) == 0 ? static_cast<unsigned>(c - 1) : 0;
+  p.act = act;
+  p.cl_shared = (kThreads * kVec) % c == 0;
+  Into d = {};
+  d.n = dst1 != nullptr ? 2 : 1;
+  d.h = static_cast<unsigned>(h);
+  d.w = static_cast<unsigned>(w);
+  void* const base[2] = {dst0, dst1};
+  const long long sn[2] = {sn0, sn1}, sh[2] = {sh0, sh1}, sw[2] = {sw0, sw1};
+  const long long size = bf16 ? 2 : 4;
+  bool strides8 = true;
+  for (int k = 0; k < d.n; ++k) {
+    d.sn[k] = sn[k], d.sh[k] = sh[k], d.sw[k] = sw[k];
+    strides8 = strides8 && sn[k] % kVec == 0 && sh[k] % kVec == 0 && sw[k] % kVec == 0;
+  }
+  const bool params_aligned = bn ? aligned(bn_mul) && aligned(bn_add) : aligned(bias);
+  // runs of whole images below 2^32 elements each, as conv_epilogue's
+  const long long run = per_image < (1LL << 32) ? ((1LL << 32) - 1) / per_image : n;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int prev = device;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  for (long long n0 = 0; n0 < n && err == cudaSuccess; n0 += run) {
+    p.y = static_cast<const char*>(y) + n0 * per_image * size;
+    p.total = (n - n0 < run ? n - n0 : run) * per_image;
+    bool vec = p.total < (1LL << 32) && aligned(p.y) && c % kVec == 0 && params_aligned && strides8;
+    for (int k = 0; k < d.n; ++k) {
+      d.dst[k] = static_cast<char*>(base[k]) + n0 * sn[k] * size;
+      vec = vec && aligned(d.dst[k]);
+    }
+    err = bf16 ? launch_into<__nv_bfloat16>(p, d, vec, s) : launch_into<float>(p, d, vec, s);
   }
   if (prev != device) cudaSetDevice(prev);
   return static_cast<int>(err);

@@ -42,8 +42,11 @@ Compute dtype: float32 runs every conv in full float32, TF32 off whatever
 
 Layout (``memory_format``): bfloat16 eval runs channels-last end to end
 (the weights, the input made so once at the entry of ``inc``, and every
-intermediate: convs, ``conv_epilogue``, pools, pad, concat), so cuDNN runs
-its NHWC kernels with no NCHW<->NHWC transpose around them. Everything else
+intermediate: convs, ``conv_epilogue``, pools, the up blocks' inputs), so
+cuDNN runs its NHWC kernels with no NCHW<->NHWC transpose around them.
+There each up block's input, the concat of the skip and the padded upconv
+output, is one buffer that their epilogues write (``conv_epilogue``'s
+destination form, ``_walk``), with no pad or concat pass. Everything else
 keeps its input's layout, NCHW from every serving caller: with TF32 off,
 cuDNN's float32 convs transpose in either layout, and on an H100 the
 float32 train step ran slower in NHWC (105.0 against 93.4 ms; PERF.md).
@@ -193,20 +196,55 @@ def _fused(y: torch.Tensor) -> bool:
     return y.dtype != torch.float64 and not records_grad(y)
 
 
-def bn_act(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, act: str, site: str) -> torch.Tensor:
+def _concat_in_place(y: torch.Tensor, fmt: torch.memory_format, dtype: torch.dtype) -> bool:
+    """Whether y's epilogue may store into an up block's concat buffer
+    (the skip level's last conv output, or the upconv's): where the graph
+    runs channels-last (bfloat16 eval), y is channels-last in the compute
+    dtype and its epilogue is the kernel. Elsewhere (autograd recording,
+    float64, the NCHW graphs, a conv output kept in float32) the up block
+    pads and concatenates."""
+    return (fmt == torch.channels_last and y.dtype == dtype and y.is_contiguous(memory_format=torch.channels_last)
+            and _fused(y))
+
+
+def bn_act(y: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, act: str, site: str,
+           into: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A DoubleConv conv's folded eval BatchNorm (its (1, C, 1, 1) scale
     and shift) and activation of the conv's output y, rounded to y's dtype:
     one ``conv_epilogue`` in a ``unet.epilogue`` span, or the aten chain
-    where autograd records or y is float64."""
+    where autograd records or y is float64. With into (a view of y's shape
+    in an up block's concat buffer) the one launch stores the result there
+    too."""
     if not _fused(y):
         return activation_fn(act)(y * scale + shift).to(y.dtype)
     with span("unet.epilogue", site):
-        return conv_epilogue(y, bn_mul=scale, bn_add=shift, act=act)
+        if into is None:
+            return conv_epilogue(y, bn_mul=scale, bn_add=shift, act=act)
+        out = torch.empty_like(y)
+        conv_epilogue(y, bn_mul=scale, bn_add=shift, act=act, into=(out, into))
+        return out
 
 
 def _eval_norm(fold, act: str):
     """Eval BatchNorm: fold(prefix, i) is BatchNorm i's (scale, shift)."""
-    return lambda y, prefix, i, site: (bn_act(y, *fold(prefix, i), act, site), None)
+    return lambda y, prefix, i, site, into=None: (bn_act(y, *fold(prefix, i), act, site, into), None)
+
+
+def _upconv_into(y: torch.Tensor, bias: torch.Tensor, half: torch.Tensor, top: int, left: int) -> None:
+    """The upconv's bias epilogue stored straight into half, the upper
+    channels of its up block's concat buffer, at the pad offset (top,
+    left); the pad's rows and columns around it are zeroed alone."""
+    (h, w), (rows, cols) = y.shape[2:], half.shape[2:]
+    if top:
+        half[:, :, :top].zero_()
+    if top + h < rows:
+        half[:, :, top + h:].zero_()
+    if left:
+        half[:, :, top:top + h, :left].zero_()
+    if left + w < cols:
+        half[:, :, top:top + h, left + w:].zero_()
+    with span("unet.epilogue", "upconv"):
+        conv_epilogue(y, bias=bias, into=(half[:, :, top:top + h, left:left + w],))
 
 
 def _weight(w, key: str, dtype: torch.dtype, fmt: torch.memory_format) -> torch.Tensor:
@@ -222,21 +260,33 @@ def _conv_pad1(x, w, halo=None):
     return F.conv2d(halo(x, 2), w, padding=(0, 1))
 
 
-def _double_conv(x, *, prefix, w, norm, dtype, fmt, halo, probe):
+def _double_conv(x, *, prefix, w, norm, dtype, fmt, halo, probe, up_channels=0):
     """(conv -> BN -> activation -> compute dtype) x 2 of the DoubleConv at
-    prefix: returns (y, what norm recorded for its two BatchNorms). Pure, so
-    recomputing it under torch.utils.checkpoint updates no statistic twice."""
-    records = []
+    prefix: returns (y, what norm recorded for its two BatchNorms, the up
+    block's concat buffer or None). With up_channels (a level whose output
+    an up block reads as its skip), where ``_concat_in_place`` holds and C
+    is a multiple of 8 (the upconv's channel offset in the buffer), the
+    buffer is a new channels-last (N, C + up_channels, H, W) tensor and the
+    second epilogue stores y into its lower C channels too. Pure but for
+    that buffer, so recomputing it under torch.utils.checkpoint (which only
+    records where no buffer is made) updates no statistic twice."""
+    records, buf = [], None
     for i, site in enumerate(("conv1", "conv2")):
         if probe is not None:
             probe(site, x)
         weight = _weight(w, f"{prefix}.double_conv.{3 * i}.weight", dtype, fmt)
         with span("unet.conv", site):
             x = _conv_pad1(x, weight, halo)
-        x, record = norm(x, prefix, i, site)
+        into = {}
+        if i == 1 and up_channels and x.shape[1] % 8 == 0 and _concat_in_place(x, fmt, dtype):
+            n, c, h, wd = x.shape
+            buf = torch.empty((n, c + up_channels, h, wd), dtype=x.dtype, device=x.device,
+                              memory_format=torch.channels_last)
+            into = {"into": buf[:, :c]}
+        x, record = norm(x, prefix, i, site, **into)
         x = x.to(dtype)
         records.append(record)
-    return x, records
+    return x, records, buf
 
 
 def _walk(cfg: UNetConfig, w, x: torch.Tensor, dtype: torch.dtype, norm, fmt: torch.memory_format, *, probe=None,
@@ -244,41 +294,63 @@ def _walk(cfg: UNetConfig, w, x: torch.Tensor, dtype: torch.dtype, norm, fmt: to
     """The float U-Net on NCHW x: returns (logits, float32 or float64, in
     the graph's layout; {DoubleConv prefix: (its input's (H, W), what norm
     recorded)}). norm(y, prefix, i, site) -> (BatchNorm i and activation of
-    y, a record); probe as ``UNet.forward`` takes it; remat
-    recomputes each DoubleConv in the backward."""
-    blocks = {}
+    y, a record), and the eval norm takes into= (``bn_act``); probe as
+    ``UNet.forward`` takes it; remat recomputes each DoubleConv in the
+    backward.
 
-    def double_conv(h, prefix, block):
+    Where ``_concat_in_place`` holds (bfloat16 eval), each up block's input
+    is one channels-last buffer [skip | pad(upconv)] that its producers
+    write: the skip level's last epilogue (its own tensor, which the next
+    max-pool reads, and the buffer's lower channels) and the upconv's bias
+    epilogue (the upper ones, at the pad offset). Elsewhere the block pads
+    the upconv's output and concatenates it with the skip."""
+    blocks = {}
+    L = cfg.num_levels
+
+    def double_conv(h, prefix, block, level=None):
         at = None if probe is None else (lambda conv, t: probe(f"{block}/{conv}", t))
-        fn = functools.partial(_double_conv, prefix=prefix, w=w, norm=norm, dtype=dtype, fmt=fmt, halo=halo, probe=at)
-        y, records = torch.utils.checkpoint.checkpoint(fn, h, use_reentrant=False) if remat else fn(h)
+        # the channels of the upconv beside this level's skip in its up block
+        up = w[f"up.{L - 2 - level}.up.weight"].shape[1] if level is not None and level < L - 1 else 0
+        fn = functools.partial(_double_conv, prefix=prefix, w=w, norm=norm, dtype=dtype, fmt=fmt, halo=halo,
+                               probe=at, up_channels=up)
+        y, records, buf = torch.utils.checkpoint.checkpoint(fn, h, use_reentrant=False) if remat else fn(h)
         blocks[prefix] = (h.shape[2:], records)
-        return y
+        return y, buf
 
     with full_precision(dtype):
         with span("unet.block", "inc"):
-            skips = [double_conv(x.to(dtype, memory_format=fmt), "inc", "inc")]
-        for i in range(cfg.num_levels - 1):
+            skip, buf = double_conv(x.to(dtype, memory_format=fmt), "inc", "inc", 0)
+        skips, concat = [skip], [buf]
+        for i in range(L - 1):
             with span("unet.block", f"down_{i}"):
                 h = F.max_pool2d(skips[-1], cfg.maxpool_size)
-                skips.append(double_conv(h, f"down.{i}.maxpool_conv.1", f"down_{i}"))
+                if concat[-1] is not None:  # pooled: the buffer holds the skip from here on
+                    skips[-1] = concat[-1][:, :skips[-1].shape[1]]
+                skip, buf = double_conv(h, f"down.{i}.maxpool_conv.1", f"down_{i}", i + 1)
+            skips.append(skip)
+            concat.append(buf)
         h = skips[-1]
-        for j in range(cfg.num_levels - 1):
-            block, skip = f"up_{j}", skips[-2 - j]
+        for j in range(L - 1):
+            block, skip, buf = f"up_{j}", skips[-2 - j], concat[-2 - j]
             with span("unet.block", block):
                 if probe is not None:
                     probe(f"{block}/upconv", h)
                 weight, bias = _weight(w, f"up.{j}.up.weight", dtype, fmt), w[f"up.{j}.up.bias"].to(dtype)
                 with span("unet.conv", "upconv"):
                     y = F.conv_transpose2d(h, weight, stride=cfg.upconv_stride)
-                if _fused(y):
-                    with span("unet.epilogue", "upconv"):
-                        y = conv_epilogue(y, bias=bias)
-                else:
-                    y = y + bias.view(1, -1, 1, 1)
                 dy, dx = skip.shape[2] - y.shape[2], skip.shape[3] - y.shape[3]
-                y = F.pad(y, [dx // 2, dx - dx // 2, dy // 2, dy - dy // 2])
-                h = double_conv(torch.cat([skip, y], dim=1), f"up.{j}.conv", block)
+                if buf is not None and dy >= 0 and dx >= 0 and _concat_in_place(y, fmt, dtype):
+                    _upconv_into(y, bias, buf[:, skip.shape[1]:], dy // 2, dx // 2)
+                    h = buf
+                else:
+                    if _fused(y):
+                        with span("unet.epilogue", "upconv"):
+                            y = conv_epilogue(y, bias=bias)
+                    else:
+                        y = y + bias.view(1, -1, 1, 1)
+                    y = F.pad(y, [dx // 2, dx - dx // 2, dy // 2, dy - dy // 2])
+                    h = torch.cat([skip, y], dim=1)
+                h, _ = double_conv(h, f"up.{j}.conv", block)
         with span("unet.block", "outc"):
             weight, bias = _weight(w, "outc.conv.weight", dtype, fmt), w["outc.conv.bias"].to(dtype)
             with span("unet.conv", "conv"):

@@ -7,7 +7,8 @@
 - conv_epilogue.conv_epilogue  (replaces the elementwise passes XLA fuses
   into the float convs' epilogues: gelslim_depth_tpu/models/unet.py:197,
   :229 and :275, quantize.py:156; and, with no TPU counterpart, the
-  transformers' heads' conv bias adds and residual units' skip adds); the
+  transformers' heads' conv bias adds and residual units' skip adds; its
+  destination form also the bf16 U-Net's pads and concats); the
   module shares the function's name, so it is imported from the module,
   not from here
 - bilinear_resize.bilinear_resize  (replaces no TPU kernel: the DPT head's

@@ -226,6 +226,97 @@ def test_fake_agrees_with_the_op_on_the_residual_form(layout):
     torch.library.opcheck(torch.ops.gelslim.conv_epilogue.default, args)
 
 
+# -- the destination form (the bf16 U-Net's concat buffers) -------------------------
+
+
+def _buffer(y, channels, rows=0, cols=0, fill=float("nan")):
+    """A channels-last (N, channels, H + rows, W + cols) buffer of y's
+    dtype, filled with ``fill`` so that what a store leaves shows."""
+    n, _, h, w = y.shape
+    return torch.full((n, channels, h + rows, w + cols), fill, dtype=y.dtype).contiguous(
+        memory_format=torch.channels_last)
+
+
+def _destinations(y, case):
+    """(the NaN-filled buffers of the case's destinations, the
+    destinations): y's own tensor; two destinations (an own tensor and a
+    concat buffer's lower channels); a channel offset (the upper channels
+    of a buffer 16 + C wide); a spatial offset besides (one row and one
+    column in, the pad's offset)."""
+    c = y.shape[1]
+    if case == "one":
+        return [], [torch.empty_like(y)]
+    if case == "two":
+        buf = _buffer(y, c + 16)
+        return [buf], [torch.empty_like(y), buf[:, :c]]
+    buf = _buffer(y, 16 + c, *((1, 2) if case == "spatial_offset" else (0, 0)))
+    top, left = (1, 1) if case == "spatial_offset" else (0, 0)
+    return [buf], [buf[:, 16:, top:top + y.shape[2], left:left + y.shape[3]]]
+
+
+INTO_CASES = ["one", "two", "channel_offset", "spatial_offset"]
+
+
+@pytest.mark.parametrize("case", INTO_CASES)
+@pytest.mark.parametrize("mode,act", [("bias", "none"), ("bn", "relu")])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cpu_into_equals_reference_then_copy(dtype, mode, act, case):
+    """The destination form stores, into each destination, what
+    ``conv_epilogue_reference`` returns, bit for bit, returns None and
+    writes nothing else of the buffers it was given views of; the twin,
+    given the same destinations, stores the same bits."""
+    g = torch.Generator().manual_seed(zlib.crc32(f"into {dtype} {mode} {case}".encode()))
+    y, kw = _inputs(g, (2, 16, 5, 7), dtype, "channels_last", mode)
+    want = ce.conv_epilogue_reference(y, act=act, **kw)
+    buffers, into = _destinations(y, case)
+    assert ce.conv_epilogue(y, act=act, **kw, into=into) is None
+    assert all(torch.equal(d, want) for d in into)
+    for buf in buffers:  # y is finite: what is not NaN was stored, one destination's worth
+        assert int((~buf.isnan()).sum()) == y.numel()
+    _, twin = _destinations(y, case)
+    assert ce.conv_epilogue_reference(y, act=act, **kw, into=twin) is None
+    assert all(torch.equal(a, b) for a, b in zip(into, twin))
+
+
+INTO_REFUSALS = {
+    "nchw destination": ("channels-last", lambda y, buf: dict(into=[torch.empty(y.shape, dtype=y.dtype)])),
+    "dtype": ("tensor of y's shape", lambda y, buf: dict(into=[torch.empty_like(y, dtype=torch.float32)])),
+    "shape": ("tensor of y's shape", lambda y, buf: dict(into=[buf[:, :8, :, :-1]])),
+    "channel offset": ("multiple of 8", lambda y, buf: dict(into=[buf[:, 4:12]])),
+    "overlap": ("overlap", lambda y, buf: dict(into=[buf[:, :8].as_strided(y.shape, (0, 1, 0, 0))])),
+    "three": ("one or two", lambda y, buf: dict(into=[buf[:, :8]] * 3)),
+    "nchw y": ("channels-last y", lambda y, buf: dict(y=y.contiguous(), into=[buf[:, :8]])),
+    "residual": ("no residual", lambda y, buf: dict(residual=torch.zeros_like(y), into=[buf[:, :8]])),
+    "q_scale": ("no q_scale", lambda y, buf: dict(q_scale=torch.ones(1), into=[buf[:, :8]])),
+}
+
+
+@pytest.mark.parametrize("case", list(INTO_REFUSALS))
+def test_into_rejects_bad_destinations(case):
+    """An NCHW destination, another dtype or shape, channels that start off
+    a multiple of 8 within their pixel, overlapping strides, three
+    destinations, an NCHW y, and ``into`` beside a residual or an int8
+    output raise, in the op's wrapper and in its twin."""
+    y = torch.zeros(2, 8, 5, 6, dtype=torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    match, make = INTO_REFUSALS[case]
+    kw = dict(bias=torch.zeros(8, dtype=torch.bfloat16), **make(y, _buffer(y, 16, fill=0.0)))
+    y = kw.pop("y", y)
+    for fn in (ce.conv_epilogue, ce.conv_epilogue_reference):
+        with pytest.raises(ValueError, match=match):
+            fn(y, **kw)
+
+
+@pytest.mark.parametrize("case", INTO_CASES)
+def test_opcheck_conv_epilogue_into(case):
+    """``opcheck`` holds the destination form's op (its schema's mutated
+    ``into``, its fake, its dispatch) to its CPU implementation."""
+    g = torch.Generator().manual_seed(5)
+    y, kw = _inputs(g, (2, 8, 5, 6), torch.bfloat16, "channels_last", "bn")
+    _, into = _destinations(y, case)
+    torch.library.opcheck(torch.ops.gelslim.conv_epilogue_into.default,
+                          (y, None, kw["bn_mul"], kw["bn_add"], "relu", into))
+
+
 # -- the U-Net's two serving graphs on the CPU -------------------------------------
 
 
@@ -339,25 +430,38 @@ def test_unet_forward_reads_the_upconv_bias_live(nets, dtype):
     assert torch.equal(got, _aten_unet_forward(net, x))
 
 
-@pytest.mark.parametrize("kind", ["float", "int8"])
+def _op_nodes(program, op):
+    """The graph's calls of op: direct, or (where the export functionalized
+    a mutating op) through ``auto_functionalized``."""
+    return [n for n in program.graph.nodes
+            if n.target is op or (n.args and n.args[0] is op and "auto_functionalized" in str(n.target))]
+
+
+@pytest.mark.parametrize("kind", ["float", "int8", "bf16"])
 def test_export_keeps_the_op_in_the_graph(kind, tmp_path):
     """``torch.export`` of the predictor traces through the op: each graph
-    holds one ``gelslim::conv_epilogue`` an epilogue of the forward."""
+    holds one ``gelslim::conv_epilogue`` an epilogue of the forward; the
+    bf16 graph's levels and upconvs store into their up blocks' concat
+    buffers through ``gelslim::conv_epilogue_into``, 2 (L - 1) of them."""
     kw = dict(CNN_dimensions=DIMS, input_tactile_image_size=(16, 22), image_normalization_method="0_255_to_0_1",
               depth_normalization_method="min_max_to_0_-1", depth_normalization_parameters=(-1.9, 0.0),
               norm_scale=0.9, use_difference_image=True)
     rng = np.random.RandomState(5)
     frame = (32, 43)
-    pred = Predictor(GelslimConfig(**kw), _fixture.make_state_dict(rng, DIMS), device="cpu")
+    pred = Predictor(GelslimConfig(**kw), _fixture.make_state_dict(rng, DIMS), device="cpu",
+                     **({"compute_dtype": torch.bfloat16} if kind == "bf16" else {}))
     if kind == "int8":
         pred = pred.quantize(rng.uniform(0, 255, (2, 6, *frame)).astype(np.float32),
                              rng.uniform(0, 255, (6, *frame)).astype(np.float32))
     path = export_predictor(pred, frame, path=str(tmp_path / "p.gsx"), batch_sizes=(2,), frame_size=frame)
     with zipfile.ZipFile(path) as zf:
         program = torch.export.load(io.BytesIO(zf.read("graph_b2.pt2")))
-    ops = [n for n in program.graph.nodes if n.target is torch.ops.gelslim.conv_epilogue.default]
+    ops = _op_nodes(program, torch.ops.gelslim.conv_epilogue.default)
+    into = _op_nodes(program, torch.ops.gelslim.conv_epilogue_into.default)
     L = len(DIMS)
-    assert len(ops) == (L if kind == "int8" else 2 * (2 * L - 1) + (L - 1))
+    stored = 2 * (L - 1) if kind == "bf16" else 0
+    assert len(ops) == (L if kind == "int8" else 2 * (2 * L - 1) + (L - 1) - stored)
+    assert len(into) == stored
 
 
 # -- on the card only ------------------------------------------------------------
@@ -482,6 +586,56 @@ def test_cuda_epilogue_past_2_32_elements(residual):
     assert got.stride() == want.stride() and torch.equal(got, want)
 
 
+# (N, C, H, W, dtype, mode, buffer channels, pad rows, pad columns, two
+# destinations): the flagship's up_3 at 2 finger images (inc/conv2 into its
+# own skip and the concat buffer's lower half; the upconv into the upper
+# half, left of the pad column), up_0's deepest pair, float32, then C % 8
+# (one element a thread) and a buffer whose pixel stride is no multiple of 8
+INTO_CUDA_CASES = [
+    (2, 64, 160, 213, torch.bfloat16, "bn", 128, 0, 0, True),
+    (2, 64, 160, 212, torch.bfloat16, "bias", 128, 0, 1, False),
+    (2, 512, 20, 26, torch.bfloat16, "bn", 1024, 0, 0, True),
+    (2, 512, 20, 26, torch.bfloat16, "bias", 1024, 0, 0, False),
+    (2, 64, 17, 22, torch.float32, "bn", 128, 1, 1, True),
+    (2, 16, 9, 10, torch.bfloat16, "bn", 20, 1, 1, True),
+    (2, 12, 9, 11, torch.bfloat16, "bn", 24, 0, 0, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,h,w,dtype,mode,width,rows,cols,two", INTO_CUDA_CASES)
+def test_cuda_into_matches_twin(n, c, h, w, dtype, mode, width, rows, cols, two):
+    """The destination form on the card against its twin (the reference,
+    then a copy into each destination): the buffer's upper channels hold
+    the bias form at the pad offset, the lower ones and an own tensor the
+    BatchNorm form; bit for bit (NaN where the twin has NaN), nothing else
+    of the buffer written, one launch counted as an into one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(n + c + h + w)
+    y, kw = _inputs(g, (n, c, h, w), dtype, "channels_last", mode, device="cuda")
+    y.permute(0, 2, 3, 1).reshape(-1)[[5, 17, 40]] = torch.tensor(
+        [float("nan"), float("inf"), -float("inf")], device="cuda").to(dtype)
+    act = "relu" if mode == "bn" else "none"
+    bufs = [torch.full((n, width, h + rows, w + cols), 7.0, dtype=dtype, device="cuda").contiguous(
+        memory_format=torch.channels_last) for _ in range(2)]
+    lo = width - c if mode == "bias" else 0
+    top, left = rows // 2, cols // 2
+
+    def views(buf, own):
+        half = buf[:, lo:lo + c, top:top + h, left:left + w]
+        return [own, half] if two else [half]
+
+    owns = [torch.empty_like(y), torch.empty_like(y)]
+    before = ce.conv_epilogue.launches, ce.conv_epilogue.into_launches
+    assert ce.conv_epilogue(y, act=act, **kw, into=views(bufs[0], owns[0])) is None
+    ce.conv_epilogue_reference(y, act=act, **kw, into=views(bufs[1], owns[1]))
+    torch.cuda.synchronize()
+    assert (ce.conv_epilogue.launches, ce.conv_epilogue.into_launches) == (before[0] + 1, before[1] + 1)
+    assert _same(bufs[0], bufs[1])
+    assert not two or _same(owns[0], owns[1])
+
+
 def _flagship_predictors():
     from gelslim_depth_tpu_torch.entry import flagship_config
 
@@ -507,20 +661,23 @@ def _flagship_predictors():
 def test_cuda_flagship_served_depth_equals_aten_chain(monkeypatch):
     """Both cells' predictors (the flagship U-Net, bf16 and int8) serve the
     same depth with the kernel as with its twin, the aten chain, in its
-    place; a call launches 22 epilogues in bf16 and 5 in int8."""
+    place; a call launches 22 epilogues in bf16 and 5 in int8, of which
+    the bf16 call's 8 store into its up blocks' concat buffers (4 levels'
+    last epilogues, 4 upconvs) and the int8 call's none."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     _, preds, frames, base = _flagship_predictors()
-    for kind, want_launches in (("bf16", 22), ("int8", 5)):
+    for kind, want_launches, want_into in (("bf16", 22, 8), ("int8", 5, 0)):
         pred = preds[kind]
-        before = ce.conv_epilogue.launches
+        before = ce.conv_epilogue.launches, ce.conv_epilogue.into_launches
         got = pred.predict_dual_frames(frames, base, (320, 427))
         torch.cuda.synchronize()
-        assert ce.conv_epilogue.launches - before == want_launches, kind
+        assert ce.conv_epilogue.launches - before[0] == want_launches, kind
+        assert ce.conv_epilogue.into_launches - before[1] == want_into, kind
         with monkeypatch.context() as m:
             m.setattr(unet_module, "conv_epilogue", ce.conv_epilogue_reference)
             m.setattr(pq, "conv_epilogue", ce.conv_epilogue_reference)
             want = pred.predict_dual_frames(frames, base, (320, 427))
         torch.cuda.synchronize()
-        assert ce.conv_epilogue.launches - before == want_launches, kind
+        assert ce.conv_epilogue.launches - before[0] == want_launches, kind
         assert torch.isfinite(got).all() and torch.equal(got, want), kind

@@ -9,6 +9,8 @@ tests/test_unet.py::test_bf16_compute_close_to_f32, max error under 0.05 of
 the output scale, held both against the float32 result and across packages.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,8 @@ from gelslim_depth_tpu_torch.config import GelslimConfig
 from gelslim_depth_tpu_torch.export import ExportedPredictor, export_predictor
 from gelslim_depth_tpu_torch.inference import Predictor
 from gelslim_depth_tpu_torch.models import UNet, UNetConfig, load_torch_checkpoint, params_from_jax
+from gelslim_depth_tpu_torch.models import unet as unet_module
+from gelslim_depth_tpu_torch.models.unet import is_batch_stat, unet_apply as torch_unet_apply
 from tests.torch_fixture import make_state_dict
 
 DIMS = (8, 16, 32)
@@ -227,3 +231,118 @@ def test_bf16_channels_last_weights_keep_the_state_dict(rng, tmp_path):
     assert served.meta["kind"] == "bf16"
     torch.testing.assert_close(served(frames, base), pred.predict_dual_frames(frames, base, (48, 66)),
                                rtol=1e-6, atol=1e-6)
+
+
+# -- the bf16 graph's concat buffers, written by their producers --------------------
+
+
+class _Stores:
+    """``models/unet.py``'s ``conv_epilogue``, counted: calls, and calls
+    that stored into destinations (``into``)."""
+
+    def __init__(self, monkeypatch):
+        self.calls = self.into = 0
+        real = unet_module.conv_epilogue
+
+        def counted(y, **kw):
+            self.calls += 1
+            self.into += kw.get("into") is not None
+            return real(y, **kw)
+
+        monkeypatch.setattr(unet_module, "conv_epilogue", counted)
+
+
+class _TwoBands:
+    """Height-sharded serving's halo exchange between two bands run in two
+    threads of one process: ``halo(rank)(x, dim)`` is x with the row of the
+    band above before it and of the band below after it, zeros at the
+    image's edges, as ``parallel.HeightHalo`` gives it across ranks."""
+
+    def __init__(self):
+        self.barrier = threading.Barrier(2)
+        self.rows = [None, None]
+
+    def halo(self, rank):
+        def exchange(x, dim):
+            first, last = x.narrow(dim, 0, 1), x.narrow(dim, x.shape[dim] - 1, 1)
+            self.rows[rank] = (first, last)
+            self.barrier.wait()
+            top = self.rows[0][1] if rank == 1 else torch.zeros_like(first)
+            bottom = self.rows[1][0] if rank == 0 else torch.zeros_like(last)
+            self.barrier.wait()
+            return torch.cat([top, x, bottom], dim)
+
+        return exchange
+
+
+def _sharded(params, stats, cfg, x, rows):
+    """unet_apply's bf16 eval logits of x over two height bands (rows of x
+    in the first), each band in its own thread, stacked."""
+    bands, out = _TwoBands(), [None, None]
+
+    def run(rank):
+        band = x[:, :, :rows] if rank == 0 else x[:, :, rows:]
+        out[rank] = torch_unet_apply(cfg, params, stats, band, compute_dtype=torch.bfloat16,
+                                     halo=bands.halo(rank))[0]
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return torch.cat(out, 2)
+
+
+@pytest.mark.parametrize("route", ["plain", "probe", "height_sharded"])
+def test_bf16_concat_in_place_equals_pad_and_cat(rng, monkeypatch, route):
+    """The bf16 channels-last eval forward, whose up blocks read one buffer
+    that the skip's last epilogue and the upconv's epilogue write, equals
+    the pad + concat composition bit for bit: at 20x27 each Up block pads a
+    column. Plain, with a probe (which sees the same inputs at every conv),
+    and over two height bands with halos. The new route stores into 2 (L -
+    1) destinations a call and launches as many epilogues as the old."""
+    *_, net, sd = _pair(rng)
+    net.to_compute_dtype(torch.bfloat16)
+    cfg = net.cfg
+    x = torch.from_numpy(rng.uniform(0, 1, (2, 3, 20, 27)).astype(np.float32))
+    params = {k: torch.from_numpy(v) for k, v in sd.items() if not is_batch_stat(k)}
+    stats = {k: torch.from_numpy(v) for k, v in sd.items() if is_batch_stat(k)}
+    L = len(DIMS)
+    got, seen = {}, {}
+    for in_place in (True, False):
+        with monkeypatch.context() as m:
+            stores = _Stores(m)
+            if not in_place:
+                m.setattr(unet_module, "_concat_in_place", lambda y, fmt, dtype: False)
+            probed = seen.setdefault(in_place, [])
+            with torch.no_grad():
+                if route == "height_sharded":
+                    got[in_place] = _sharded(params, stats, cfg, x, rows=8)
+                else:
+                    probe = (lambda site, h: probed.append((site, h.clone()))) if route == "probe" else None
+                    got[in_place] = net(x, probe=probe)
+        assert stores.into == (2 * (L - 1) * (2 if route == "height_sharded" else 1) if in_place else 0)
+        assert stores.calls == (2 * (2 * L - 1) + (L - 1)) * (2 if route == "height_sharded" else 1)
+    assert got[True].shape == (2, 1, 20, 27) and torch.equal(got[True], got[False])
+    if route == "probe":
+        assert [s for s, _ in seen[True]] == [s for s, _ in seen[False]]
+        assert len(seen[True]) == 2 * (2 * L - 1) + (L - 1)
+        assert all(torch.equal(a, b) for (_, a), (_, b) in zip(seen[True], seen[False]))
+
+
+def test_training_and_nchw_routes_store_into_nothing(rng, monkeypatch):
+    """Only bf16 channels-last eval writes concat buffers in place: the
+    float32 NCHW eval forward, a bf16 eval forward that autograd records,
+    and a bf16 train step pad and concatenate, and store into nothing."""
+    *_, net, sd = _pair(rng)
+    x = torch.from_numpy(rng.uniform(0, 1, (2, 3, 20, 27)).astype(np.float32))
+    params = {k: torch.from_numpy(v).requires_grad_() for k, v in sd.items() if not is_batch_stat(k)}
+    stats = {k: torch.from_numpy(v) for k, v in sd.items() if is_batch_stat(k)}
+    stores = _Stores(monkeypatch)
+    with torch.no_grad():
+        net(x)  # float32, NCHW
+    assert stores.calls == 2 * (2 * len(DIMS) - 1) + len(DIMS) - 1
+    net.to_compute_dtype(torch.bfloat16)
+    net(x).sum().backward()  # autograd records: the aten chain
+    torch_unet_apply(net.cfg, params, stats, x, train=True, compute_dtype=torch.bfloat16)[0].sum().backward()
+    assert stores.into == 0
